@@ -1,0 +1,38 @@
+"""math_tpu_torch — the PyTorch/CUDA port of ``math_tpu``.
+
+A second package beside the JAX package, which stays the reference.  Module
+names mirror ``math_tpu`` one to one so a reader finds the counterpart
+(``math_tpu_torch/infer/nuts.py`` <-> ``math_tpu/infer/nuts.py``); inside,
+the code is plain PyTorch: functions on tensors, an explicit device, an
+explicit ``torch.Generator``, ``torch.autograd.Function`` around each
+hand-written CUDA kernel.
+
+Chain-batched convention (there is no ``vmap`` here): every parameter block
+carries a LEADING chain axis; ``LogDensity.logp`` maps ``(C, dim) -> (C,)``;
+the gradient is ``torch.autograd.grad(logp.sum(), z)`` because chains are
+independent.  Densities keep the JAX names and signatures and add one
+keyword, ``batch_ndims=0``: the sum runs over all axes after the first
+``batch_ndims``.
+
+Entry points run on the GPU unless the caller asks for the CPU
+(``device=`` argument, default ``get_config().device == "cuda"``).
+
+Layout:
+
+- ``math_tpu_torch.special``     — constants used by the densities
+- ``math_tpu_torch.transforms``  — constraint transforms
+- ``math_tpu_torch.dists``       — log densities
+- ``math_tpu_torch.ops``         — hand-written CUDA kernels + their plain versions
+- ``math_tpu_torch.model``       — log-density program layer
+- ``math_tpu_torch.infer``       — chain-batched NUTS with pooled warmup
+- ``math_tpu_torch.diagnostics`` — ESS / R-hat
+- ``math_tpu_torch.convert``     — data and sampler state shared with ``math_tpu``
+"""
+
+__version__ = "0.1.0"
+
+from math_tpu_torch import special  # noqa: F401
+from math_tpu_torch import transforms  # noqa: F401
+from math_tpu_torch import dists  # noqa: F401
+from math_tpu_torch.config import get_config, update_config  # noqa: F401
+from math_tpu_torch.utils.propto import include_summand, is_autodiff  # noqa: F401

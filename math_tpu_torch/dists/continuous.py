@@ -1,0 +1,68 @@
+"""Continuous univariate distributions.
+
+Counterpart: ``math_tpu/dists/continuous.py`` (reference:
+``stan/math/prim/scal/prob/*_lpdf.hpp``).  Semantics preserved:
+
+- ``*_lpdf(y, ...)`` returns the SUM of elementwise log densities over every
+  axis after the first ``batch_ndims`` (0: the scalar the JAX function
+  returns; 1: one value per chain).
+- ``propto=True`` drops summands via ``include_summand``.
+- Invalid parameters yield ``-inf`` with double-where sanitization for
+  nan-free gradients.
+
+Ported so far: the densities the eight-schools and GLM models use.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from math_tpu_torch.special import LOG_SQRT_TWO_PI
+from math_tpu_torch.utils.propto import include_summand
+from math_tpu_torch.dists._util import bcast, finish, ok_pos, safe
+
+__all__ = ["normal_lpdf", "std_normal_lpdf", "cauchy_lpdf"]
+
+
+def normal_lpdf(y, mu, sigma, *, propto=False, batch_ndims=0):
+    """Ref: normal_lpdf.hpp:36-112."""
+    yb, mub, sb = bcast(y, mu, sigma)
+    ok = torch.isfinite(yb) & torch.isfinite(mub) & ok_pos(sb)
+    s = safe(sb, ok)
+    z = (yb - safe(mub, ok, 0.0)) / s
+    lp = torch.zeros_like(z)
+    if include_summand(propto, y, mu, sigma):
+        lp = lp - 0.5 * torch.square(z)
+    if include_summand(propto, sigma):
+        lp = lp - torch.log(s)
+    if include_summand(propto):
+        lp = lp - LOG_SQRT_TWO_PI
+    return finish(lp, ok, batch_ndims)
+
+
+def std_normal_lpdf(y, *, propto=False, batch_ndims=0):
+    """Ref: std_normal_lpdf.hpp."""
+    (yb,) = bcast(y)
+    ok = torch.isfinite(yb)
+    lp = -0.5 * torch.square(safe(yb, ok, 0.0))
+    if include_summand(propto):
+        lp = lp - LOG_SQRT_TWO_PI
+    return finish(lp, ok, batch_ndims)
+
+
+def cauchy_lpdf(y, mu, sigma, *, propto=False, batch_ndims=0):
+    """Ref: cauchy_lpdf.hpp."""
+    yb, mub, sb = bcast(y, mu, sigma)
+    ok = torch.isfinite(yb) & torch.isfinite(mub) & ok_pos(sb)
+    s = safe(sb, ok)
+    z = (yb - safe(mub, ok, 0.0)) / s
+    lp = torch.zeros_like(z)
+    if include_summand(propto, y, mu, sigma):
+        lp = lp - torch.log1p(torch.square(z))
+    if include_summand(propto, sigma):
+        lp = lp - torch.log(s)
+    if include_summand(propto):
+        lp = lp - math.log(math.pi)
+    return finish(lp, ok, batch_ndims)

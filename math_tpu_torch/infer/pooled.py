@@ -1,0 +1,163 @@
+"""Chain-batched NUTS with cross-chain pooled warmup.
+
+Counterpart: ``math_tpu/infer/pooled.py``.  All chains advance in lock-step
+as one ``(C, dim)`` batch; warmup statistics (mean acceptance for dual
+averaging, Welford moments for the metric) are pooled across every chain, so
+step size and metric are shared.  Pooling has no analog in Stan (which adapts
+per chain); sharing the metric across chains is statistically more efficient
+when running hundreds of chains.
+
+Ported: ``run_pooled_chains`` on one device (``axis_name=None``).  The
+chunked variant, the pooling across devices and the segment memo follow with
+``parallel/``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from math_tpu_torch.config import get_config
+from math_tpu_torch.infer import adapt
+from math_tpu_torch.infer.nuts import ChainNoise, IntegratorState, LogpGrad, NutsStats, nuts_kernel
+
+
+class PooledResult(NamedTuple):
+    position: torch.Tensor  # (chains, num_samples, dim)
+    accept_prob: torch.Tensor
+    diverging: torch.Tensor
+    tree_depth: torch.Tensor
+    n_leapfrog: torch.Tensor
+    energy: torch.Tensor
+    step_size: torch.Tensor  # scalar (shared)
+    inv_mass: torch.Tensor  # (dim,) shared
+    max_depth: int = 10  # sampling-phase cap actually used
+    n_grad_calls: int = 0  # chain-batched gradient evaluations of the whole run
+    final_state: Optional[IntegratorState] = None
+
+
+def _welford_merge_batch(wf: adapt.WelfordState, zs, axis_name=None):
+    """Chan-style parallel merge of a cross-chain batch into the accumulator."""
+    if axis_name is not None:
+        raise NotImplementedError("pooling across devices is not ported yet")
+    cg = zs.shape[0]
+    mb = zs.mean(0)
+    m2b = torch.square(zs - mb).sum(0)
+    n = wf.count
+    n_new = n + cg
+    delta = mb - wf.mean
+    mean_new = wf.mean + delta * (cg / n_new)
+    m2_new = wf.m2 + m2b + torch.square(delta) * (n * cg / n_new)
+    return adapt.WelfordState(n_new, mean_new, m2_new)
+
+
+def init_pooled(noise, z0s, logp_grad):
+    """(states, da, wf, inv_mass): initial integrator states, the shared
+    initial step size (geometric mean of the per-chain heuristics) in a fresh
+    dual-averaging state, an empty Welford accumulator, a unit metric."""
+    dim = z0s.shape[1]
+    dt, dev = z0s.dtype, z0s.device
+    logp0, grad0 = logp_grad(z0s)
+    states = IntegratorState(z0s, torch.zeros_like(z0s), logp0, grad0)
+    inv_mass = torch.ones((dim,), dtype=dt, device=dev)
+    single = adapt.find_reasonable_step_size(noise, logp_grad, states, inv_mass)
+    eps0 = torch.exp(torch.log(single).mean(0))
+    return states, adapt.da_init(eps0, dt), adapt.welford_init(dim, dt, dev), inv_mass
+
+
+def warmup_pooled(noise, states, da, wf, inv_mass, logp_grad, in_slow, window_end, *,
+                  max_depth, target_accept):
+    """Pooled warmup over the steps of the (numpy) schedule."""
+    dim = states.z.shape[1]
+    dt, dev = states.z.dtype, states.z.device
+    for slow, win_end in zip(in_slow, window_end):
+        eps = torch.exp(da.log_eps)
+        states, stats = nuts_kernel(noise, states, logp_grad, eps, inv_mass, max_depth=max_depth)
+        da = adapt.da_update(da, stats.accept_prob.mean(0), target=target_accept)
+        if slow:
+            wf = _welford_merge_batch(wf, states.z)
+        if win_end:
+            inv_mass = adapt.welford_variance_regularized(wf)
+            da = adapt.da_init(torch.exp(da.log_eps), dt)
+            wf = adapt.welford_init(dim, dt, dev)
+    return states, da, wf, inv_mass
+
+
+def sample_pooled(noise, states, logp_grad, eps, inv_mass, num_samples, *, max_depth):
+    """``num_samples`` transitions at a fixed step size and metric.  Returns
+    ``(states, zs (n, C, dim), stats with leading (n, C))``."""
+    n_chains, dim = states.z.shape
+    zs = torch.empty((num_samples, n_chains, dim), dtype=states.z.dtype, device=states.z.device)
+    all_stats = []
+    for i in range(num_samples):
+        states, stats = nuts_kernel(noise, states, logp_grad, eps, inv_mass, max_depth=max_depth)
+        zs[i] = states.z
+        all_stats.append(stats)
+    if all_stats:
+        stats = NutsStats(*(torch.stack(f) for f in zip(*all_stats)))
+    else:
+        empty = torch.empty((0, n_chains), device=states.z.device)
+        stats = NutsStats(*([empty] * len(NutsStats._fields)))
+    return states, zs, stats
+
+
+def _pooled_result(zs, stats, eps_final, inv_mass, max_depth, n_grad_calls, final_state):
+    # (num_samples, chains, ...) -> (chains, num_samples, ...)
+    stats = NutsStats(*(f.swapaxes(0, 1) for f in stats))
+    return PooledResult(
+        position=zs.swapaxes(0, 1),
+        accept_prob=stats.accept_prob,
+        diverging=stats.diverging,
+        tree_depth=stats.tree_depth,
+        n_leapfrog=stats.n_leapfrog,
+        energy=stats.energy,
+        step_size=eps_final,
+        inv_mass=inv_mass,
+        max_depth=max_depth,
+        n_grad_calls=n_grad_calls,
+        final_state=final_state,
+    )
+
+
+def run_pooled_chains(
+    rng,
+    z0s,
+    logdensity_fn: Callable,
+    *,
+    args=(),
+    num_warmup: int,
+    num_samples: int,
+    max_depth: int = 10,
+    target_accept: float = 0.8,
+    axis_name: Optional[str] = None,
+    device=None,
+) -> PooledResult:
+    """Advance a batch of chains with shared (pooled) step size and metric.
+
+    ``rng`` is a ``torch.Generator`` of ``device`` (or any object with
+    ``ChainNoise``'s three methods); ``z0s`` is ``(chains, dim)``;
+    ``logdensity_fn(z, *args)`` maps ``(chains, dim) -> (chains,)``.  Runs on
+    ``device`` (default: ``get_config().device``, the GPU): ``z0s`` and the
+    tensors in ``args`` are moved there if they are elsewhere.
+    """
+    if axis_name is not None:
+        raise NotImplementedError("pooling across devices is not ported yet")
+    device = torch.device(get_config().device if device is None else device)
+    z0s = z0s.to(device)
+    args = tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
+    noise = rng if hasattr(rng, "normal") else ChainNoise(rng, device, z0s.dtype)
+    logp_grad = LogpGrad(logdensity_fn, args)
+
+    with torch.no_grad():
+        states, da, wf, inv_mass = init_pooled(noise, z0s, logp_grad)
+        in_slow, window_end = adapt.warmup_schedule(num_warmup)
+        states, da, wf, inv_mass = warmup_pooled(
+            noise, states, da, wf, inv_mass, logp_grad, in_slow, window_end,
+            max_depth=max_depth, target_accept=target_accept,
+        )
+        eps_final = torch.exp(da.log_eps_bar) if num_warmup > 0 else torch.exp(da.log_eps)
+        states, zs, stats = sample_pooled(
+            noise, states, logp_grad, eps_final, inv_mass, num_samples, max_depth=max_depth
+        )
+    return _pooled_result(zs, stats, eps_final, inv_mass, max_depth, logp_grad.calls, states)

@@ -1,0 +1,161 @@
+"""PyTorch port: the rules every file of ``math_tpu_torch`` keeps.
+
+- the port and ``chip_smoke.py`` import nothing of JAX, of the JAX package or
+  of Triton (an AST walk over every import statement);
+- lower layers do not import higher ones (the layer order of
+  ``tests/test_layering.py``);
+- the kernel loader raises a clear error where there is no ``nvcc`` and does
+  not hand back the plain version; the kernel wrapper refuses a device it has
+  no kernel for instead of computing elsewhere;
+- style: no tabs, no trailing whitespace, no line over 160 columns, a module
+  docstring in every module.
+"""
+
+import ast
+import os
+import shutil
+
+import pytest
+import torch
+
+from math_tpu_torch import get_config, update_config
+from math_tpu_torch.ops import _build, glm_fused
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+PKG = os.path.join(ROOT, "math_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "math_tpu", "triton")
+MAX_LINE = 160
+
+LAYER = {
+    "utils": 0,
+    "special": 0,
+    "config": 0,
+    "transforms": 1,
+    "ops": 1,
+    "dists": 2,
+    "model": 3,
+    "diagnostics": 3,
+    "infer": 4,
+    "models": 4,
+    "convert": 5,
+}
+
+
+def _port_files():
+    out = ["chip_smoke.py"]
+    for dirpath, _, files in os.walk(PKG):
+        for fn in sorted(files):
+            if fn.endswith(".py"):
+                out.append(os.path.relpath(os.path.join(dirpath, fn), ROOT).replace(os.sep, "/"))
+    return sorted(out)
+
+
+def _imports_of(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+
+
+@pytest.mark.parametrize("rel", _port_files())
+def test_no_forbidden_imports(rel):
+    bad = [m for m in _imports_of(os.path.join(ROOT, rel)) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_port_has_the_slice_modules():
+    files = set(_port_files())
+    for rel in (
+        "chip_smoke.py", "math_tpu_torch/config.py", "math_tpu_torch/model.py", "math_tpu_torch/convert.py",
+        "math_tpu_torch/utils/propto.py", "math_tpu_torch/dists/_util.py", "math_tpu_torch/dists/continuous.py",
+        "math_tpu_torch/dists/glm.py", "math_tpu_torch/transforms/scalar.py", "math_tpu_torch/transforms/api.py",
+        "math_tpu_torch/ops/glm_fused.py", "math_tpu_torch/ops/_build.py", "math_tpu_torch/infer/nuts.py",
+        "math_tpu_torch/infer/adapt.py", "math_tpu_torch/infer/pooled.py", "math_tpu_torch/diagnostics/convergence.py",
+        "math_tpu_torch/models/glm_logistic.py", "math_tpu_torch/models/eight_schools.py",
+    ):
+        assert rel in files, rel
+    assert os.path.isfile(os.path.join(PKG, "csrc", "glm_fused.cu"))
+
+
+def test_layer_dag():
+    violations = []
+    for rel in _port_files():
+        if not rel.startswith("math_tpu_torch/"):
+            continue
+        parts = rel[len("math_tpu_torch/"):].replace(".py", "").split("/")
+        src_layer = LAYER.get(parts[0])
+        if src_layer is None:
+            continue
+        for mod in _imports_of(os.path.join(ROOT, rel)):
+            if not mod.startswith("math_tpu_torch."):
+                continue
+            tgt_layer = LAYER.get(mod.split(".")[1])
+            if tgt_layer is not None and tgt_layer > src_layer:
+                violations.append(f"{rel} (L{src_layer}) -> {mod} (L{tgt_layer})")
+    assert not violations, "layering violations:\n" + "\n".join(violations)
+
+
+@pytest.mark.parametrize("rel", _port_files() + ["math_tpu_torch/csrc/glm_fused.cu"])
+def test_style(rel):
+    with open(os.path.join(ROOT, rel), encoding="utf-8") as f:
+        src = f.read()
+    problems = []
+    for i, line in enumerate(src.splitlines(), 1):
+        if "\t" in line:
+            problems.append(f"{rel}:{i}: tab character")
+        if line != line.rstrip():
+            problems.append(f"{rel}:{i}: trailing whitespace")
+        if len(line) > MAX_LINE and "http" not in line:
+            problems.append(f"{rel}:{i}: line length {len(line)} > {MAX_LINE}")
+    if rel.endswith(".py"):
+        stripped = src.lstrip()
+        if stripped.startswith("#!"):
+            stripped = stripped.split("\n", 1)[1].lstrip()
+        if not stripped.startswith('"""'):
+            problems.append(f"{rel}:1: missing module docstring")
+    assert not problems, "\n".join(problems)
+
+
+def test_kernel_loader_raises_without_nvcc(tmp_path):
+    """No compiler: the loader raises and names the reason; it has nothing to
+    hand back in the kernel's place."""
+    if shutil.which("nvcc") or os.path.isfile("/usr/local/cuda/bin/nvcc") or os.environ.get("CUDA_HOME"):
+        pytest.skip("nvcc is installed here; the loader would build the kernel")
+    old = get_config().kernel_build_dir
+    update_config(kernel_build_dir=str(tmp_path / "build"))
+    try:
+        with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+            _build.load_library("glm_fused")
+        with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+            glm_fused._library()
+    finally:
+        update_config(kernel_build_dir=old)
+    assert not os.path.exists(tmp_path / "build")
+    assert glm_fused._lib is None
+
+
+def test_kernel_wrapper_computes_only_on_cpu_or_cuda():
+    """A tensor that lies neither on the CPU nor on a GPU is refused: the
+    wrapper never moves the work to another device."""
+    before = dict(glm_fused.PLAIN_CALLS)
+    y = torch.empty(8, device="meta")
+    x = torch.empty(8, 3, device="meta")
+    a = torch.empty(2, device="meta")
+    b = torch.empty(3, 2, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        glm_fused.glm_fused_parts("bernoulli_logit", y, x, a, b)
+    with pytest.raises(ValueError, match="is on cpu"):
+        glm_fused.glm_fused_parts("bernoulli_logit", torch.zeros(8), x, a, b)
+    assert glm_fused.PLAIN_CALLS == before
+
+
+def test_config_defaults():
+    cfg = get_config()
+    assert cfg.device == "cuda" and cfg.default_dtype == torch.float32
+    assert os.path.basename(cfg.kernel_build_dir) == "_build"
+    with open(os.path.join(ROOT, ".gitignore"), encoding="utf-8") as f:
+        assert "math_tpu_torch/_build/" in f.read().split()
