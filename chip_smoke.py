@@ -13,18 +13,36 @@ not 0 and no result line is printed):
 2. ``build``    compiles ``math_tpu_torch/csrc/*.cu`` from source with nvcc.
 3. ``kernels``  every family of the fused GLM kernel against its plain PyTorch
    version (float64, on the GPU) at the main-path shape N=100,000, K=50, C=256
-   and at the ragged shape N=1537, K=7, C=5; times of the kernel, of the plain
-   version in float32, and the least time the card could take for the work.
+   and at the ragged shape N=1537, K=7, C=5; the diagonal-block Cholesky kernel
+   against its plain version at the GP path's shape (32 blocks of 128 x 128
+   taken from the 2000-point kernel matrix: first diagonal block and a later
+   Schur complement) and ragged (5 blocks of 37 x 37, one not positive
+   definite); times of each kernel, of its plain version in float32, of the
+   one PyTorch call (pair) that computes the same where there is one, and the
+   least time the card could take for the work.
 4. ``main_path`` with every launch count set to 0 just before and read just
    after: chain-batched NUTS with pooled warmup on the 100,000 x 50 logistic
    GLM, 256 chains, float32, through ``run_pooled_chains``; then value and
    gradient through the public dispatchers of the three other GLM families at
    the same width.  The bernoulli kernel must have been launched exactly once
    per chain-batched gradient call of the sampler, the plain version never.
-5. ``eight_schools`` 64 chains on the GPU (a model without a kernel).
+5. ``gp_path``  again with the counts set to 0 just before and read just
+   after: 32-chain NUTS on the 2000-point marginal GP (float32, jitter 1e-3,
+   ``max_depth=3``, ``target_accept=0.75``) through ``run_pooled_chains``.  The
+   block kernel must have been launched exactly ``ceil(n / B)`` times per
+   gradient call and the plain version never; ``logp`` and its gradient at 8
+   final positions are held against float64 ``torch.linalg``.  Then exact
+   latent-field draws from 32 hyperparameter draws, and value and gradient of
+   the latent model for 8 chains against float64.
+6. ``eight_schools`` 64 chains on the GPU (a model without a kernel).
 
-With ``--profile`` a further phase traces a few sampling transitions of the
-main path with ``torch.profiler`` and prints the device time by kernel.
+With ``--profile`` two further phases trace a few sampling transitions of the
+GLM main path and a few gradient calls of the GP path with ``torch.profiler``
+and print the device time by kernel.
+
+Without a GPU the GP phase can be rehearsed on the CPU at a small size:
+``drive_gp_sampler(n=48, chains=8, num_warmup=60, num_samples=40,
+device="cpu", dtype=torch.float64)`` after ``update_config(cholesky_block_size=16)``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -38,11 +56,13 @@ import time
 import numpy as np
 import torch
 
-from math_tpu_torch import get_config
+from math_tpu_torch import get_config, update_config
 from math_tpu_torch.diagnostics import convergence
 from math_tpu_torch.infer.pooled import run_pooled_chains
-from math_tpu_torch.models import eight_schools, glm_logistic
-from math_tpu_torch.ops import _build, glm_fused
+from math_tpu_torch.models import eight_schools, glm_logistic, gp_regression
+from math_tpu_torch.ops import _build, chol_blocked, glm_fused
+from math_tpu_torch.ops import gp as gp_ops
+from math_tpu_torch.ops.cholesky import spd_solve_logdiag_reference
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores (the arithmetic the kernel uses) and HBM bandwidth.
@@ -62,6 +82,9 @@ DISPATCHERS = {
     "neg_binomial_2_log": glm_fused.neg_binomial_2_log_glm_lpmf_chains,
 }
 REPLACES = "math_tpu/ops/pallas_glm.py:112"
+
+N_GP, C_GP, JITTER_GP = 2000, 32, 1e-3
+CB_RAGGED, B_RAGGED = 5, 37
 
 
 def require(cond, what):
@@ -95,11 +118,12 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ["glm_fused"]
+    names = ["glm_fused", "chol_inv_block"]
     started = {name: _build.start_build(name) for name in names}  # one nvcc per source, together
     for name in names:
         _build.finish_build(name, started[name])
     glm_fused._library()
+    chol_blocked._library()
     emit("build", sources=[f"math_tpu_torch/csrc/{n}.cu" for n in names],
          seconds=time.perf_counter() - t0, nvcc_seconds=dict(_build.BUILD_SECONDS))
 
@@ -349,6 +373,19 @@ def phase_main_path(x, y, beta_true, entries):
     return res
 
 
+def dev_us(event):
+    """Device time of one profiler row in microseconds (the attribute was renamed between PyTorch versions)."""
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0.0)
+
+
+def device_kernels(prof):
+    """``(rows of the device kernels, their total time in microseconds)`` of a finished profile."""
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(dev_us(e) for e in kernels)
+    require(total_us > 0, "the profiler saw no device time")
+    return kernels, total_us
+
+
 def phase_profile(x, y, res, transitions=5):
     """Only with ``--profile``: where the time of a sampling transition goes.
     Continues the main path's chains at their adapted step size and metric;
@@ -379,10 +416,7 @@ def phase_profile(x, y, res, transitions=5):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(transitions)
     calls_traced = fn.calls - calls0 - calls
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)  # noqa: E731
-    total_us = sum(dev_us(e) for e in kernels)
-    require(total_us > 0, "the profiler saw no device time")
+    kernels, total_us = device_kernels(prof)
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     emit(
         "profile", transitions=transitions, wall_s_untraced=wall, grad_calls_untraced=calls,
@@ -390,6 +424,316 @@ def phase_profile(x, y, res, transitions=5):
         device_ms_traced=total_us / 1e3, device_ms_per_grad_call=total_us / 1e3 / calls_traced,
         device_launches_per_grad_call=sum(e.count for e in kernels) / calls_traced,
         device_busy_share=(total_us / 1e6 / calls_traced) / (wall / calls),
+        top_kernels=[{"name": e.key[:80], "count": e.count, "device_ms": dev_us(e) / 1e3} for e in top],
+    )
+
+
+# ---------------------------------------------------------------------------
+# The GP path: the diagonal-block Cholesky kernel and the sampler around it
+# ---------------------------------------------------------------------------
+
+
+def gp_hyper(c, seed):
+    """``c`` posterior-typical hyperparameter settings (rho, alpha, sigma) of
+    the synthetic GP data, from a seed."""
+    rng = np.random.default_rng(seed)
+    return (0.6 * (1 + 0.1 * rng.uniform(-1, 1, c)), 1.4 * (1 + 0.1 * rng.uniform(-1, 1, c)),
+            0.3 * (1 + 0.05 * rng.uniform(-1, 1, c)))
+
+
+def gp_blocks(x, B, block_index):
+    """Blocks the GP path really meets, float32 ``(C_GP, B, B)``: the first
+    diagonal block of ``K + (sigma^2 + jitter) I`` and the Schur complement the
+    blocked factorization forms at ``block_index`` (computed in float64)."""
+    rho, alpha, sigma = (torch.tensor(v, dtype=torch.float64, device="cuda") for v in gp_hyper(C_GP, seed=400))
+    x64 = torch.tensor(x, dtype=torch.float64, device="cuda")
+    k = gp_ops.add_diag(gp_ops.gp_exp_quad_cov(x64, alpha, rho), torch.square(sigma) + JITTER_GP)
+    s = block_index * B
+    panel = torch.linalg.cholesky(k[:, : s + B, : s + B])[:, s:, :s]
+    schur = k[:, s : s + B, s : s + B] - panel @ panel.mT
+    return k[:, :B, :B].float().contiguous(), schur.float().contiguous()
+
+
+def compare_chol(d32, label):
+    """Kernel (float32) against the plain version in float64 on the same
+    blocks.  Tolerances: ``max |U - U64| <= 1e-4 max |U64|`` and the same for
+    ``W`` (the factor's forward error grows with the block's condition number,
+    a few thousand here, times the float32 unit roundoff); residuals
+    ``max |U^T U - d| <= 2e-5 max |d|`` and ``max |U W - I| <= 1e-4``."""
+    u, w = chol_blocked.chol_inv_block_parts(d32)
+    torch.cuda.synchronize()
+    u64, w64 = chol_blocked.chol_inv_block_reference(d32.double())
+    up, wp = chol_blocked.chol_inv_block_reference(d32)
+    B = d32.shape[-1]
+    require(u.shape == d32.shape and w.shape == d32.shape and u.dtype == torch.float32, f"{label}: wrong shape or type")
+    require(bool(torch.isfinite(u).all() and torch.isfinite(w).all()), f"{label}: non-finite factor of an SPD block")
+    require(bool((u.tril(-1) == 0).all() and (w.tril(-1) == 0).all()), f"{label}: U or W is not upper-triangular")
+    errs = {"U": float((u.double() - u64).abs().max()), "W": float((w.double() - w64).abs().max())}
+    plain = {"U": float((up.double() - u64).abs().max()), "W": float((wp.double() - w64).abs().max())}
+    scale = {"U": float(u64.abs().max()), "W": float(w64.abs().max())}
+    for name in ("U", "W"):
+        require(errs[name] <= 1e-4 * scale[name], f"{label} {name}: max abs err {errs[name]} against max |want| {scale[name]}")
+    resid = float((u.double().mT @ u.double() - d32.double()).abs().max())
+    inv_resid = float((u.double() @ w.double() - torch.eye(B, dtype=torch.float64, device="cuda")).abs().max())
+    require(resid <= 2e-5 * float(d32.abs().max()), f"{label}: max |U^T U - d| = {resid}")
+    require(inv_resid <= 1e-4, f"{label}: max |U W - I| = {inv_resid}")
+    return {"abs_err": errs, "plain_f32_abs_err": plain, "max_abs_want": scale, "factor_residual": resid, "inverse_residual": inv_resid}
+
+
+def compare_chol_ragged():
+    """``Cb = 5`` blocks of an odd size, matrix 2 not positive definite from
+    pivot 20 on: that one must be NaN exactly where the plain version is (``U``
+    from row 20 on, ``W`` everywhere) and equal before; the others within
+    ``1e-4 max |want|``."""
+    rng = np.random.default_rng(401)
+    a = rng.normal(size=(CB_RAGGED, B_RAGGED, B_RAGGED))
+    d = a @ np.swapaxes(a, -1, -2) + B_RAGGED * np.eye(B_RAGGED)
+    d[2, 20, 20] = -5.0
+    d32 = torch.tensor(d, dtype=torch.float32, device="cuda")
+    u, w = chol_blocked.chol_inv_block_parts(d32)
+    torch.cuda.synchronize()
+    u64, w64 = chol_blocked.chol_inv_block_reference(d32.double())
+    good = [0, 1, 3, 4]
+    worst = 0.0
+    for got, want in ((u, u64), (w, w64)):
+        require(bool((torch.isnan(got) == torch.isnan(want)).all()), "ragged: NaN pattern differs from the plain version")
+        require(bool(torch.isfinite(got[good]).all()), "ragged: a positive definite block of the batch was poisoned")
+        err = float((got.double() - want)[good].abs().max())
+        require(err <= 1e-4 * float(want[good].abs().max()), f"ragged: max abs err {err}")
+        worst = max(worst, err)
+    tail = B_RAGGED - 20
+    require(int(torch.isnan(u[2, 20:, 20:].triu()).sum()) == tail * (tail + 1) // 2, "ragged: U of the bad block is not NaN from its bad pivot on")
+    require(bool(torch.isnan(w[2]).all()), "ragged: W of the bad block is not NaN")
+    err_before = float((u[2, :20].double() - u64[2, :20]).abs().max())
+    require(err_before <= 1e-4 * float(u64[2, :20].abs().max()), f"ragged: rows before the bad pivot are off by {err_before}")
+    return {"cb": CB_RAGGED, "b": B_RAGGED, "bad_matrix": 2, "bad_pivot": 20, "max_abs_err": worst}
+
+
+def library_chol_inv(d):
+    """The same function by one PyTorch call pair (timing only)."""
+    upper = torch.linalg.cholesky(d).mT
+    eye = torch.eye(d.shape[-1], dtype=d.dtype, device=d.device).expand_as(d)
+    return upper, torch.linalg.solve_triangular(upper, eye, upper=True)
+
+
+def phase_kernels_chol(x_gp):
+    B = get_config().cholesky_block_size
+    first, schur = gp_blocks(x_gp, B, block_index=8)
+    report_first = compare_chol(first, "first diagonal block")
+    report_schur = compare_chol(schur, "Schur block 8")
+    ragged = compare_chol_ragged()
+    ms = time_ms(lambda: chol_blocked.chol_inv_block_parts(schur), warmup=3, reps=50)
+    plain_ms = time_ms(lambda: chol_blocked.chol_inv_block_reference(schur), warmup=1, reps=3)
+    library_ms = time_ms(lambda: library_chol_inv(schur), warmup=2, reps=10)
+    cb = schur.shape[0]
+    nbytes, flops = 3.0 * cb * B * B * 4, (4.0 / 3.0) * B**3 * cb
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {
+        "name": "chol_inv_block",
+        "route": "cuda",
+        "source": "math_tpu_torch/csrc/chol_inv_block.cu",
+        "replaces": "math_tpu/ops/chol_pallas.py:46",
+        "launches": None,  # filled from the GP path's run
+        "max_abs_err": max(*report_first["abs_err"].values(), *report_schur["abs_err"].values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,  # torch.linalg.cholesky + solve_triangular(U, I); the port never calls it here
+        "shape": {"cb": cb, "b": B},
+        "dependent_steps": 2 * B,
+        "us_per_step": ms * 1e3 / (2 * B),
+        "first_block": report_first,
+        "schur_block": report_schur,
+        "ragged": ragged,
+        "tolerance": {"factor_rel_to_max": 1e-4, "factor_residual_rel": 2e-5, "inverse_residual": 1e-4, "ragged_rel_to_max": 1e-4},
+    }
+
+
+def gp_reference_logp(z, x, y, jitter, sq_dists=None):
+    """The GP log density written out independently of the port's model code:
+    ``z (C, 3)`` unconstrained ``log (rho, alpha, sigma)`` (or ``(C, 3 + n)``
+    with ``eta`` for the latent model), priors and Jacobian in closed form,
+    squared distances by direct differences (or by ``sq_dists``), the
+    factorization by ``torch.linalg``.  In the dtype of ``z``."""
+    rho, alpha, sigma = torch.exp(z[:, 0]), torch.exp(z[:, 1]), torch.exp(z[:, 2])
+    lp = z[:, :3].sum(-1) - 6.0 * torch.log(rho) - 5.0 / rho - 0.125 * torch.square(alpha) - 0.5 * torch.square(sigma)
+    d2 = torch.square(x[:, None] - x[None, :]) if sq_dists is None else sq_dists(x)
+    k = torch.square(alpha)[:, None, None] * torch.exp(-0.5 * d2 / torch.square(rho)[:, None, None])
+    eye = torch.eye(x.shape[0], dtype=z.dtype, device=z.device)
+    if z.shape[1] == 3:
+        zz, slogdiag = spd_solve_logdiag_reference(k + (torch.square(sigma) + jitter)[:, None, None] * eye, y)
+        return lp - 0.5 * torch.square(zz).sum(-1) - slogdiag
+    eta = z[:, 3:]
+    f = (torch.linalg.cholesky(k + jitter * eye) @ eta[..., None])[..., 0]
+    resid = (y - f) / sigma[:, None]
+    return lp - 0.5 * torch.square(eta).sum(-1) - 0.5 * torch.square(resid).sum(-1) - x.shape[0] * torch.log(sigma)
+
+
+def value_and_grad(fn, z):
+    z = z.detach().requires_grad_(True)
+    lp = fn(z)
+    (g,) = torch.autograd.grad(lp.sum(), z)
+    return lp.detach(), g
+
+
+def check_against_float64(label, model, z, x, y, jitter, floors):
+    """``model.logp`` and its gradient on the card (float32, through the block
+    kernel) against the float64 reference.  Beside it the float32
+    ``torch.linalg`` path's own error on the same kernel matrix (squared
+    distances by the port's expansion), and with distances by direct
+    differences.  The kernel path's error may be at most 4x the former, or
+    within the stated absolute floor."""
+    lp, g = model.logp_and_grad(z, x, y)
+    lp64, g64 = value_and_grad(lambda zz: gp_reference_logp(zz, x.double(), y.double(), jitter), z.double())
+    lp32, g32 = value_and_grad(lambda zz: gp_reference_logp(zz, x, y, jitter, gp_ops.sq_dists), z)
+    lp32d, g32d = value_and_grad(lambda zz: gp_reference_logp(zz, x, y, jitter), z)
+    out = {}
+    for name, got, lin, lin_direct, want in (("logp", lp, lp32, lp32d, lp64), ("grad", g, g32, g32d, g64)):
+        err, lin_err = float((got.double() - want).abs().max()), float((lin.double() - want).abs().max())
+        require(bool(torch.isfinite(got).all()), f"{label}: non-finite {name}")
+        require(err <= max(4.0 * lin_err, floors[name]), f"{label} {name}: err {err} vs float64; torch.linalg float32 path {lin_err}; floor {floors[name]}")
+        out[name] = {"max_abs_err": err, "torch_linalg_f32_max_abs_err": lin_err,
+                     "torch_linalg_f32_direct_distances_max_abs_err": float((lin_direct.double() - want).abs().max()),
+                     "max_abs_want": float(want.abs().max()), "floor": floors[name]}
+    return out
+
+
+def drive_gp_sampler(n=N_GP, *, chains=C_GP, num_warmup=60, num_samples=40, seed=0, device="cuda", dtype=torch.float32,
+                     jitter=JITTER_GP, sigma_tol=0.03):
+    """The GP main path: 32-chain NUTS with pooled warmup on the marginal GP."""
+    x, y = gp_regression.synthetic_data(n, seed=0)
+    model = gp_regression.make_marginal(n, jitter=jitter)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xt = torch.tensor(x, dtype=dtype, device=device)
+    yt = torch.tensor(y, dtype=dtype, device=device)
+    z0 = model.initial_positions(gen, chains, init_radius=0.5, device=device, dtype=dtype)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_pooled_chains(
+        gen, z0, model.logp, args=(xt, yt), num_warmup=num_warmup, num_samples=num_samples,
+        max_depth=3, target_accept=0.75, device=device,
+    )
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(res.position.shape == (chains, num_samples, 3), f"draws have shape {tuple(res.position.shape)}")
+    require(bool(torch.isfinite(res.position).all()), "non-finite draws")
+    draws = model.transform_draws(res.position)
+    hyper = np.stack([draws[k].double().cpu().numpy() for k in ("rho", "alpha", "sigma")], axis=-1)  # (C, S, 3)
+    div_rate = float(res.diverging.double().mean())
+    sigma_mean = float(hyper[..., 2].mean())
+    require(div_rate < 0.05, f"divergence rate {div_rate}")
+    require(abs(sigma_mean - 0.3) < sigma_tol, f"posterior mean of sigma is {sigma_mean}; the data were made with 0.3")
+    report = {
+        "chains": chains, "n": n, "dtype": str(dtype), "jitter": jitter, "num_warmup": num_warmup, "num_samples": num_samples,
+        "max_depth": 3, "target_accept": 0.75, "block_size": get_config().cholesky_block_size, "wall_s": wall,
+        "grad_calls": res.n_grad_calls, "grad_calls_per_s": res.n_grad_calls / wall,
+        "ms_per_grad_call": wall / res.n_grad_calls * 1e3, "divergence_rate": div_rate,
+        "step_size": float(res.step_size), "mean_tree_depth": float(res.tree_depth.double().mean()),
+        "mean_accept": float(res.accept_prob.mean()),
+        "posterior_mean": dict(zip(("rho", "alpha", "sigma"), (float(v) for v in hyper.reshape(-1, 3).mean(0)))),
+        "posterior_sd": dict(zip(("rho", "alpha", "sigma"), (float(v) for v in hyper.reshape(-1, 3).std(0)))),
+        "ess_bulk": dict(zip(("rho", "alpha", "sigma"), (float(v) for v in convergence.ess_bulk(hyper)))),
+        "split_rhat": dict(zip(("rho", "alpha", "sigma"), (float(v) for v in convergence.split_rhat(hyper)))),
+    }
+    return res, report, model, (x, y, xt, yt), hyper
+
+
+def drive_latent(hyper, x, y, xt, yt, *, draws=32, chains=8, device="cuda", dtype=torch.float32, jitter=JITTER_GP):
+    """After the sampler: exact latent-field draws from ``draws`` of the
+    hyperparameter draws, and one value-and-gradient of the latent model."""
+    n = x.shape[0]
+    gen = torch.Generator(device=device).manual_seed(11)
+    picks = hyper[:, -1, :][:draws]  # the last draw of each chain
+    fs = gp_regression.sample_latent_conditional(gen, picks, x, y, jitter=jitter, batch=16, device=device, dtype=dtype)
+    require(fs.shape == (len(picks), n) and bool(torch.isfinite(fs).all()), "latent draws: wrong shape or non-finite")
+    f_true = np.sin(2 * x) * np.exp(-0.2 * np.abs(x)) * 2.0
+    fs_np = fs.double().cpu().numpy()
+    dev = np.abs(fs_np.mean(0) - f_true)
+    within = float(np.mean(dev < 3.0 * fs_np.std(0, ddof=1)))
+    rmse = float(np.sqrt(np.mean(dev**2)))
+    require(within >= 0.95 and rmse < 0.15, f"latent mean: {within} of the points within 3 posterior sd of the generating function, rmse {rmse}")
+    latent = gp_regression.make(n, jitter=jitter)
+    z = latent.initial_positions(gen, chains, init_radius=0.5, device=device, dtype=dtype)
+    z[:, :3] = torch.log(torch.tensor(picks[:chains], dtype=dtype, device=device))
+    return fs, {"latent_draws": len(picks), "share_within_3_sd": within, "rmse_vs_generating_function": rmse}, latent, z
+
+
+def phase_gp_path(entry):
+    B = get_config().cholesky_block_size
+    nb = -(-N_GP // B)
+    chol_blocked.reset_counts()
+    glm_fused.reset_counts()
+    res, report, model, (x, y, xt, yt), hyper = drive_gp_sampler()
+    launches_sampler = chol_blocked.LAUNCHES["chol_inv_block"]
+    require(launches_sampler == nb * res.n_grad_calls > 0,
+            f"{launches_sampler} launches for {res.n_grad_calls} gradient calls of {nb} blocks each")
+    _, latent_report, latent, z_latent = drive_latent(hyper, x, y, xt, yt)
+    lp_latent, _ = latent.logp_and_grad(z_latent, xt, yt)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(lp_latent).all()), "latent GP: non-finite logp")
+    launches = chol_blocked.LAUNCHES["chol_inv_block"]
+    plain_calls = chol_blocked.PLAIN_CALLS["chol_inv_block"]
+    require(plain_calls == 0, f"the plain version ran on the GP path: {plain_calls} calls")
+    require(launches == launches_sampler + 5 * nb, f"{launches - launches_sampler} launches after the sampler, expected {5 * nb}")
+    entry["launches"] = launches
+
+    # after the counts were read: the independent float64 reference, and timings
+    z_final = res.position[:8, -1, :].contiguous()
+    marginal_check = check_against_float64("marginal GP", model, z_final, xt, yt, JITTER_GP, floors={"logp": 0.05, "grad": 0.5})
+    latent_check = check_against_float64("latent GP", latent, z_latent, xt, yt, JITTER_GP, floors={"logp": 0.05, "grad": 0.5})
+
+    z_all = res.position[:, -1, :].contiguous()
+    blocked_ms = time_ms(lambda: model.logp_and_grad(z_all, xt, yt), warmup=2, reps=5)
+    update_config(cholesky_block_size=64)  # timing only: the other block size that fits, for the choice recorded in config.py
+    blocked_64_ms = time_ms(lambda: model.logp_and_grad(z_all, xt, yt), warmup=2, reps=5)
+    update_config(cholesky_block_size=B)
+    linalg = lambda zz: gp_reference_logp(zz, xt, yt, JITTER_GP, gp_ops.sq_dists)  # noqa: E731
+    linalg_ms = time_ms(lambda: value_and_grad(linalg, z_all), warmup=2, reps=5)
+    emit("gp_path", **report, kernel_launches=launches, launches_in_sampler=launches_sampler, blocks_per_factorization=nb,
+         plain_calls=plain_calls, marginal_vs_float64=marginal_check, latent=latent_report, latent_vs_float64=latent_check,
+         value_and_grad_ms={"blocked_kernel_path": blocked_ms, "blocked_kernel_path_block_64": blocked_64_ms,
+                            "torch_linalg_f32": linalg_ms, "shape": [C_GP, N_GP, N_GP]})
+    return res, model, xt, yt
+
+
+def phase_profile_gp(res, model, xt, yt, calls=3):
+    """Only with ``--profile``: device time of a gradient call of the GP path
+    by kind of kernel: the block kernel, the matrix products of the glue, and
+    the elementwise rest (kernel-matrix build and its adjoint, padding, masks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    z = res.position[:, -1, :].contiguous()
+    model.logp_and_grad(z, xt, yt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        model.logp_and_grad(z, xt, yt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            model.logp_and_grad(z, xt, yt)
+        torch.cuda.synchronize()
+    kernels, total_us = device_kernels(prof)
+    kinds = {"chol_inv_block_kernel": 0.0, "matrix_products": 0.0, "elementwise_and_copies": 0.0}
+    for e in kernels:
+        key = e.key.lower()
+        if "chol_inv_block" in key:
+            kinds["chol_inv_block_kernel"] += dev_us(e)
+        elif any(tag in key for tag in ("gemm", "gemv", "cutlass", "cublas", "xmma")):
+            kinds["matrix_products"] += dev_us(e)
+        else:
+            kinds["elementwise_and_copies"] += dev_us(e)
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    emit(
+        "profile_gp", grad_calls=calls, wall_ms_per_grad_call_untraced=wall / calls * 1e3,
+        device_ms_per_grad_call=total_us / 1e3 / calls, device_busy_share=(total_us / 1e6) / wall,
+        device_launches_per_grad_call=sum(e.count for e in kernels) / calls,
+        device_ms_per_grad_call_by_kind={k: v / 1e3 / calls for k, v in kinds.items()},
+        share_by_kind={k: v / total_us for k, v in kinds.items()},
         top_kernels=[{"name": e.key[:80], "count": e.count, "device_ms": dev_us(e) / 1e3} for e in top],
     )
 
@@ -419,9 +763,15 @@ def main():
     phase_build()
     x, y, beta_true, _ = glm_logistic.synthetic_data(N_MAIN, K_MAIN)
     entries = phase_kernels(x)
+    chol_entry = phase_kernels_chol(gp_regression.synthetic_data(N_GP, seed=0)[0])
     res = phase_main_path(x, y, beta_true, entries)
     if "--profile" in sys.argv[1:]:
         phase_profile(x, y, res)
+    del res
+    gp_res, gp_model, gp_x, gp_y = phase_gp_path(chol_entry)
+    entries.append(chol_entry)
+    if "--profile" in sys.argv[1:]:
+        phase_profile_gp(gp_res, gp_model, gp_x, gp_y)
     phase_eight_schools()
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -28,6 +28,13 @@ class Config:
     kernel_build_dir: str = os.environ.get(
         "MATH_TPU_TORCH_BUILD_DIR", os.path.join(_PKG_DIR, "_build")
     )
+    # diagonal-block size of the blocked Cholesky (``ops/chol_blocked.py``).
+    # The block kernel keeps one (B, B) float32 residual/U and one W per thread
+    # block in shared memory: 2 * 64 KB at B = 128, inside the 227 KB a Hopper
+    # block may use.  The JAX package's 256 (2 * 256 KB) does not fit; 170 is
+    # the most that does.  There is no size threshold below which another
+    # factorization is taken: a smaller matrix is one block of its own size.
+    cholesky_block_size: int = 128
 
 
 _config = Config()

@@ -16,6 +16,7 @@ from math_tpu_torch.config import get_config
 from math_tpu_torch.infer.adapt import DualAveragingState, WelfordState
 from math_tpu_torch.infer.nuts import IntegratorState
 from math_tpu_torch.models.glm_logistic import synthetic_data  # noqa: F401  (same X, y for both)
+from math_tpu_torch.models.gp_regression import synthetic_data as gp_synthetic_data  # noqa: F401  (same x, y)
 
 
 def _place(device, dtype):
@@ -28,6 +29,23 @@ def _place(device, dtype):
 
 def _t(a, device, dtype):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def data_from_numpy(*arrays, device=None, dtype=None):
+    """A model's data (``x, y`` of the GP; ``X, y`` of the GLM) as tensors on
+    ``device``, to be passed through the samplers' ``args=``."""
+    device, dtype = _place(device, dtype)
+    return tuple(_t(a, device, dtype) for a in arrays)
+
+
+def positions_from_numpy(z, *, device=None, dtype=None):
+    """A batch of unconstrained positions ``(C, dim)`` (or of constrained
+    hyperparameter draws ``(M, 3)``) from the JAX package, on ``device``: both
+    packages then evaluate the same points."""
+    if np.ndim(z) != 2:
+        raise ValueError("positions_from_numpy: expected a (C, dim) batch")
+    device, dtype = _place(device, dtype)
+    return _t(z, device, dtype)
 
 
 def from_numpy_state(z, r, logp, grad, step_size, inv_mass, *, device=None, dtype=None):

@@ -2,3 +2,4 @@
 
 from math_tpu_torch.dists.continuous import *  # noqa: F401,F403
 from math_tpu_torch.dists.glm import *  # noqa: F401,F403
+from math_tpu_torch.dists.multivariate import *  # noqa: F401,F403

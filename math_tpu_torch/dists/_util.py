@@ -11,12 +11,14 @@ gradients stay nan-free at valid points.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from math_tpu_torch.utils.batch import sum_event
 
-__all__ = ["fdtype", "bcast", "finish", "safe", "ok_pos"]
+__all__ = ["fdtype", "bcast", "as_tensors", "finish", "safe", "ok_pos"]
 
 
 def _like(*args):
@@ -43,10 +45,37 @@ def fdtype(*args):
     return _like(*args)[0]
 
 
-def bcast(*args):
-    """Broadcast all args to a common shape as float tensors on one device."""
+# Host constants up to this many elements are copied to a device once and the
+# copy is kept (a density inside a sampler meets the same few constants at every
+# gradient call); a larger array is data and should be passed as a tensor.
+_CONST_CACHE_MAX_ELEMS = 4096
+
+
+@functools.lru_cache(maxsize=256)
+def _const_tensor(raw, np_dtype, shape, dt, device):
+    """The tensor of a host constant, keyed by its bytes: a numpy array that
+    was changed in place gives a new key, so the copy is never stale."""
+    return torch.as_tensor(np.frombuffer(raw, dtype=np_dtype).reshape(shape).copy(), dtype=dt, device=device)
+
+
+def _as_constant(a, dt, device):
+    arr = np.asarray(a)
+    if arr.size > _CONST_CACHE_MAX_ELEMS or arr.dtype == object:
+        return torch.as_tensor(arr, dtype=dt, device=device)
+    return _const_tensor(arr.tobytes(), arr.dtype.str, arr.shape, dt, device)
+
+
+def as_tensors(*args):
+    """All args as float tensors of one dtype on one device; Python numbers
+    and numpy arrays become read-only constants (do not write into them)."""
     dt, device = _like(*args)
-    arrs = [torch.as_tensor(a, dtype=dt, device=device) for a in args]
+    return [a.to(dtype=dt, device=device) if isinstance(a, torch.Tensor) else _as_constant(a, dt, device) for a in args]
+
+
+def bcast(*args):
+    """Broadcast all args to a common shape as float tensors on one device.
+    The results are read-only views: do not write into them."""
+    arrs = as_tensors(*args)
     return torch.broadcast_tensors(*arrs) if len(arrs) > 1 else arrs
 
 
@@ -56,13 +85,12 @@ def safe(x, ok, fill=1.0):
     The "double-where" trick: downstream ``where(ok, lp, -inf)`` discards
     these lanes, and sanitizing first keeps reverse-mode gradients finite.
     """
-    return torch.where(ok, x, torch.as_tensor(fill, dtype=x.dtype, device=x.device))
+    return torch.where(ok, x, fill)
 
 
 def finish(lp, ok, batch_ndims=0):
     """Sum elementwise log-prob, sending invalid lanes to -inf."""
-    neg_inf = torch.as_tensor(-float("inf"), dtype=lp.dtype, device=lp.device)
-    return sum_event(torch.where(ok, lp, neg_inf), batch_ndims)
+    return sum_event(torch.where(ok, lp, -float("inf")), batch_ndims)
 
 
 def ok_pos(x):

@@ -10,7 +10,7 @@ Counterpart: ``math_tpu/dists/continuous.py`` (reference:
 - Invalid parameters yield ``-inf`` with double-where sanitization for
   nan-free gradients.
 
-Ported so far: the densities the eight-schools and GLM models use.
+Ported so far: the densities the eight-schools, GLM and GP models use.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from math_tpu_torch.special import LOG_SQRT_TWO_PI
 from math_tpu_torch.utils.propto import include_summand
 from math_tpu_torch.dists._util import bcast, finish, ok_pos, safe
 
-__all__ = ["normal_lpdf", "std_normal_lpdf", "cauchy_lpdf"]
+__all__ = ["normal_lpdf", "std_normal_lpdf", "cauchy_lpdf", "inv_gamma_lpdf"]
 
 
 def normal_lpdf(y, mu, sigma, *, propto=False, batch_ndims=0):
@@ -65,4 +65,23 @@ def cauchy_lpdf(y, mu, sigma, *, propto=False, batch_ndims=0):
         lp = lp - torch.log(s)
     if include_summand(propto):
         lp = lp - math.log(math.pi)
+    return finish(lp, ok, batch_ndims)
+
+
+def inv_gamma_lpdf(y, alpha, beta, *, propto=False, batch_ndims=0):
+    """Ref: inv_gamma_lpdf.hpp."""
+    yb, ab, bb = bcast(y, alpha, beta)
+    okp = ok_pos(ab) & ok_pos(bb)
+    sup = yb > 0
+    ok = okp & sup
+    a, b, ys = safe(ab, okp), safe(bb, okp), safe(yb, sup)
+    lp = torch.zeros_like(yb)
+    if include_summand(propto, alpha):
+        lp = lp - torch.lgamma(a)
+    if include_summand(propto, alpha, beta):
+        lp = lp + a * torch.log(b)
+    if include_summand(propto, y, alpha):
+        lp = lp - (a + 1.0) * torch.log(ys)
+    if include_summand(propto, y, beta):
+        lp = lp - b / ys
     return finish(lp, ok, batch_ndims)

@@ -7,6 +7,11 @@
 - the kernel loader raises a clear error where there is no ``nvcc`` and does
   not hand back the plain version; the kernel wrapper refuses a device it has
   no kernel for instead of computing elsewhere;
+- ``torch.linalg.cholesky`` appears under ``math_tpu_torch/ops/`` only inside a
+  function whose name ends in ``_reference``: no library factorization stands
+  in for the hand-written block kernel;
+- no file of the port names a TPU generation (a number measured on one is not
+  the port's);
 - style: no tabs, no trailing whitespace, no line over 160 columns, a module
   docstring in every module.
 """
@@ -19,12 +24,14 @@ import pytest
 import torch
 
 from math_tpu_torch import get_config, update_config
-from math_tpu_torch.ops import _build, glm_fused
+from math_tpu_torch.ops import _build, chol_blocked, glm_fused
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "math_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "math_tpu", "triton")
 MAX_LINE = 160
+KERNEL_SOURCES = ["math_tpu_torch/csrc/glm_fused.cu", "math_tpu_torch/csrc/chol_inv_block.cu"]
+TPU_GENERATIONS = ("v5e", "v5p", "v6e", "v4-8")
 
 LAYER = {
     "utils": 0,
@@ -76,9 +83,12 @@ def test_port_has_the_slice_modules():
         "math_tpu_torch/ops/glm_fused.py", "math_tpu_torch/ops/_build.py", "math_tpu_torch/infer/nuts.py",
         "math_tpu_torch/infer/adapt.py", "math_tpu_torch/infer/pooled.py", "math_tpu_torch/diagnostics/convergence.py",
         "math_tpu_torch/models/glm_logistic.py", "math_tpu_torch/models/eight_schools.py",
+        "math_tpu_torch/ops/chol_blocked.py", "math_tpu_torch/ops/cholesky.py", "math_tpu_torch/ops/gp.py",
+        "math_tpu_torch/dists/multivariate.py", "math_tpu_torch/models/gp_regression.py",
     ):
         assert rel in files, rel
-    assert os.path.isfile(os.path.join(PKG, "csrc", "glm_fused.cu"))
+    for name in KERNEL_SOURCES:
+        assert os.path.isfile(os.path.join(ROOT, name)), name
 
 
 def test_layer_dag():
@@ -99,7 +109,7 @@ def test_layer_dag():
     assert not violations, "layering violations:\n" + "\n".join(violations)
 
 
-@pytest.mark.parametrize("rel", _port_files() + ["math_tpu_torch/csrc/glm_fused.cu"])
+@pytest.mark.parametrize("rel", _port_files() + KERNEL_SOURCES)
 def test_style(rel):
     with open(os.path.join(ROOT, rel), encoding="utf-8") as f:
         src = f.read()
@@ -120,6 +130,44 @@ def test_style(rel):
     assert not problems, "\n".join(problems)
 
 
+@pytest.mark.parametrize("rel", _port_files() + KERNEL_SOURCES)
+def test_no_tpu_generation_is_named(rel):
+    with open(os.path.join(ROOT, rel), encoding="utf-8") as f:
+        src = f.read()
+    found = [g for g in TPU_GENERATIONS if g in src]
+    assert not found, f"{rel} names {found}: a number taken on a TPU is not the port's"
+
+
+def _calls_outside_reference(path, dotted):
+    """Names of the functions of ``path`` (or ``<module>``) that mention the
+    attribute chain ``dotted`` and are not called ``*_reference``."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    bad = []
+
+    def visit(node, owner):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else owner
+            if isinstance(child, ast.Attribute) and ast.unparse(child) == dotted and not owner.endswith("_reference"):
+                bad.append(owner)
+            visit(child, inner)
+
+    visit(tree, "<module>")
+    return bad
+
+
+@pytest.mark.parametrize("rel", [r for r in _port_files() if r.startswith("math_tpu_torch/ops/")])
+def test_no_library_cholesky_outside_reference_functions(rel):
+    bad = _calls_outside_reference(os.path.join(ROOT, rel), "torch.linalg.cholesky")
+    assert not bad, f"{rel}: torch.linalg.cholesky in {bad}"
+
+
+def test_the_cholesky_rule_sees_a_call(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import torch\ndef f(a):\n    return torch.linalg.cholesky(a)\ndef g_reference(a):\n    return torch.linalg.cholesky(a)\n")
+    assert _calls_outside_reference(str(src), "torch.linalg.cholesky") == ["f"]
+
+
 def test_kernel_loader_raises_without_nvcc(tmp_path):
     """No compiler: the loader raises and names the reason; it has nothing to
     hand back in the kernel's place."""
@@ -132,10 +180,12 @@ def test_kernel_loader_raises_without_nvcc(tmp_path):
             _build.load_library("glm_fused")
         with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
             glm_fused._library()
+        with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+            chol_blocked._library()
     finally:
         update_config(kernel_build_dir=old)
     assert not os.path.exists(tmp_path / "build")
-    assert glm_fused._lib is None
+    assert glm_fused._lib is None and chol_blocked._lib is None
 
 
 def test_kernel_wrapper_computes_only_on_cpu_or_cuda():
@@ -156,6 +206,7 @@ def test_kernel_wrapper_computes_only_on_cpu_or_cuda():
 def test_config_defaults():
     cfg = get_config()
     assert cfg.device == "cuda" and cfg.default_dtype == torch.float32
+    assert cfg.cholesky_block_size == 128 and not hasattr(cfg, "thresholds")
     assert os.path.basename(cfg.kernel_build_dir) == "_build"
     with open(os.path.join(ROOT, ".gitignore"), encoding="utf-8") as f:
         assert "math_tpu_torch/_build/" in f.read().split()
