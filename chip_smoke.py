@@ -26,7 +26,18 @@ not 0 and no result line is printed):
    gradient through the public dispatchers of the three other GLM families at
    the same width.  The bernoulli kernel must have been launched exactly once
    per chain-batched gradient call of the sampler, the plain version never.
-5. ``gp_path``  again with the counts set to 0 just before and read just
+5. ``ordinal_path`` and ``categorical_path``, each with the counts set to 0
+   just before its sampler and read just after: 256-chain NUTS (150 + 50,
+   ``max_depth=6``, float32) through ``run_pooled_chains`` on an ordinal
+   regression (ordered-logistic GLM, 100,000 x 50, K=5 categories, dim 54) and
+   on a multinomial regression (categorical-logit GLM, same X, K=5 classes
+   with class 1 as reference, dim 204), both written with the public API
+   (``make_log_density``, transforms, densities).  The ordered / categorical
+   kernel must have been launched exactly once per gradient call and its plain
+   version never; divergences < 5%, finite draws, recovery of the generating
+   parameters, and ``logp`` and gradient at 8 final positions against the
+   float64 ``dists`` density.
+6. ``gp_path``  again with the counts set to 0 just before and read just
    after: 32-chain NUTS on the 2000-point marginal GP (float32, jitter 1e-3,
    ``max_depth=3``, ``target_accept=0.75``) through ``run_pooled_chains``.  The
    block kernel must have been launched exactly ``ceil(n / B)`` times per
@@ -34,15 +45,24 @@ not 0 and no result line is printed):
    final positions are held against float64 ``torch.linalg``.  Then exact
    latent-field draws from 32 hyperparameter draws, and value and gradient of
    the latent model for 8 chains against float64.
-6. ``eight_schools`` 64 chains on the GPU (a model without a kernel).
+7. ``eight_schools`` 64 chains on the GPU (a model without a kernel).
 
-With ``--profile`` two further phases trace a few sampling transitions of the
-GLM main path and a few gradient calls of the GP path with ``torch.profiler``
-and print the device time by kernel.
+The ``kernels`` phase also holds the ordered and the categorical kernel
+against their plain versions (float64) at the main-path shape and at ragged
+shapes (N=1537, D=7, C=5, K=3 and 5; for the categorical kernel also C=13,
+K=5, which needs two column tiles).
 
-Without a GPU the GP phase can be rehearsed on the CPU at a small size:
+With ``--profile`` further phases trace a few sampling transitions of the
+GLM, ordinal and multinomial paths and a few gradient calls of the GP path
+with ``torch.profiler`` and print the device time by kernel.
+
+Without a GPU the sampler phases can be rehearsed on the CPU at a small size:
 ``drive_gp_sampler(n=48, chains=8, num_warmup=60, num_samples=40,
-device="cpu", dtype=torch.float64)`` after ``update_config(cholesky_block_size=16)``.
+device="cpu", dtype=torch.float64)`` after ``update_config(cholesky_block_size=16)``;
+``drive_ordinal_sampler(x, *ordinal_data(x), chains=16, num_warmup=100,
+num_samples=50, max_depth=6, seed=0, device="cpu", dtype=torch.float64,
+tol=0.3)`` with ``x = glm_logistic.synthetic_data(4000, 5)[0]``, and
+``drive_categorical_sampler`` alike.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -55,10 +75,12 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from math_tpu_torch import get_config, update_config
+from math_tpu_torch import dists, get_config, transforms, update_config
 from math_tpu_torch.diagnostics import convergence
 from math_tpu_torch.infer.pooled import run_pooled_chains
+from math_tpu_torch.model import make_log_density
 from math_tpu_torch.models import eight_schools, glm_logistic, gp_regression
 from math_tpu_torch.ops import _build, chol_blocked, glm_fused
 from math_tpu_torch.ops import gp as gp_ops
@@ -82,6 +104,32 @@ DISPATCHERS = {
     "neg_binomial_2_log": glm_fused.neg_binomial_2_log_glm_lpmf_chains,
 }
 REPLACES = "math_tpu/ops/pallas_glm.py:112"
+
+# The ordinal and multinomial paths: K categories / classes at the main width.
+K_CAT = 5
+CUTS_TRUE = (-2.5, -0.8, 0.8, 2.5)
+RAGGED_ORDERED = [(N_RAGGED, K_RAGGED, C_RAGGED, 3), (N_RAGGED, K_RAGGED, C_RAGGED, 5)]  # (n, d, c, k)
+RAGGED_CATEGORICAL = RAGGED_ORDERED + [(N_RAGGED, K_RAGGED, 13, 5)]  # 13 x 5 = 65 columns: two column tiles
+
+
+def ordered_core_ops(k):
+    """Operations the ordered-logistic function needs per (row, chain) beside
+    its two products, counted as ``CORE_OPS`` from what any implementation
+    must compute, not from the kernel: u1 and u2 (2), two softplus (12), lp
+    with log1m_exp (10), w1 and w2 (8), theta' (1), the logp sum (1), and w2
+    and -w1 added into gcuts (2).  The same for every K."""
+    return 36
+
+
+def categorical_core_ops(k):
+    """Operations the categorical-logit function needs per (row, chain) beside
+    its two products, counted from the function: alpha added to the K logits
+    (K), one log-sum-exp (the maximum K-1, the K differences and their
+    exponentials, their sum K-1, log and the maximum added back 2), lp (1),
+    one softmax from the same exponentials (1/s and K products), theta' (K),
+    the logp sum (1) and galpha (K adds)."""
+    return 8 * k + 3
+
 
 N_GP, C_GP, JITTER_GP = 2000, 32, 1e-3
 CB_RAGGED, B_RAGGED = 5, 37
@@ -386,18 +434,16 @@ def device_kernels(prof):
     return kernels, total_us
 
 
-def phase_profile(x, y, res, transitions=5):
+def phase_profile(res, model, args, label="profile", transitions=5):
     """Only with ``--profile``: where the time of a sampling transition goes.
-    Continues the main path's chains at their adapted step size and metric;
-    times ``transitions`` transitions on the host clock, then traces as many
-    with ``torch.profiler`` and sums the device time by kernel."""
+    Continues a path's chains at their adapted step size and metric; times
+    ``transitions`` transitions on the host clock, then traces as many with
+    ``torch.profiler`` and sums the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from math_tpu_torch.infer.nuts import ChainNoise, LogpGrad
     from math_tpu_torch.infer.pooled import sample_pooled
 
-    model = glm_logistic.make(x.shape[1])
-    args = (torch.tensor(x, device="cuda"), torch.tensor(y, device="cuda"))
     fn = LogpGrad(model.logp, args)
     noise = ChainNoise(torch.Generator(device="cuda").manual_seed(7), "cuda", torch.float32)
     state = res.final_state
@@ -419,13 +465,304 @@ def phase_profile(x, y, res, transitions=5):
     kernels, total_us = device_kernels(prof)
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     emit(
-        "profile", transitions=transitions, wall_s_untraced=wall, grad_calls_untraced=calls,
+        label, transitions=transitions, wall_s_untraced=wall, grad_calls_untraced=calls,
         ms_per_grad_call_untraced=wall / calls * 1e3, grad_calls_traced=calls_traced,
         device_ms_traced=total_us / 1e3, device_ms_per_grad_call=total_us / 1e3 / calls_traced,
         device_launches_per_grad_call=sum(e.count for e in kernels) / calls_traced,
         device_busy_share=(total_us / 1e6 / calls_traced) / (wall / calls),
         top_kernels=[{"name": e.key[:80], "count": e.count, "device_ms": dev_us(e) / 1e3} for e in top],
     )
+
+
+# ---------------------------------------------------------------------------
+# The ordinal and multinomial paths: the ordered and categorical kernels and
+# the samplers around them
+# ---------------------------------------------------------------------------
+
+
+def ordered_inputs(n, d, c, k, seed, scale, x=None):
+    """y (int32), x, beta (D, C), cuts (K-1, C) from a seed, as numpy (float32 values)."""
+    rng = np.random.default_rng(seed)
+    if x is None:
+        x = rng.normal(size=(n, d)).astype(np.float32)
+    beta = (rng.normal(size=(d, c)) * scale).astype(np.float32)
+    cuts = np.cumsum(0.3 + rng.uniform(size=(k - 1, c)), axis=0) - 0.5 * k
+    y = rng.integers(1, k + 1, n).astype(np.int32)
+    return y, x, beta, cuts.astype(np.float32)
+
+
+def categorical_inputs(n, d, c, k, seed, scale, x=None):
+    """y (int32), x, alpha (C, K), beta (C, D, K) from a seed, as numpy (float32 values)."""
+    rng = np.random.default_rng(seed)
+    if x is None:
+        x = rng.normal(size=(n, d)).astype(np.float32)
+    alpha = (rng.normal(size=(c, k)) * 0.3).astype(np.float32)
+    beta = (rng.normal(size=(c, d, k)) * scale).astype(np.float32)
+    y = rng.integers(1, k + 1, n).astype(np.int32)
+    return y, x, alpha, beta
+
+
+def with_y(y, floats, dtype):
+    return [torch.as_tensor(y, dtype=torch.int32, device="cuda")] + on_gpu(floats, dtype)
+
+
+def compare_parts(label, kernel, plain, y, floats, names, grad_atol):
+    """Kernel (float32) against its plain version in float64 on the same
+    inputs, with the tolerances of ``compare``: logp rtol=2e-5; gradients
+    rtol=3e-4 and ``grad_atol``."""
+    got = kernel(*with_y(y, floats, torch.float32))
+    torch.cuda.synchronize()
+    want = plain(*with_y(y, floats, torch.float64))
+    plain32 = plain(*with_y(y, floats, torch.float32))
+    errs, plain_errs = {}, {}
+    for name, g, w, p in zip(names, got, want, plain32):
+        require(g.shape == w.shape and g.dtype == torch.float32 and bool(torch.isfinite(g).all()), (label, name))
+        rtol, atol = (2e-5, 0.0) if name == "logp" else (3e-4, grad_atol)
+        err = (g.double() - w).abs()
+        require(bool((err <= atol + rtol * w.abs()).all()), (
+            f"{label} {name}: kernel disagrees with the plain version: max abs err {float(err.max())}, "
+            f"max |want| {float(w.abs().max())}, rtol {rtol}, atol {atol}"
+        ))
+        errs[name] = float(err.max())
+        plain_errs[name] = float((p.double() - w).abs().max())
+    return errs, plain_errs
+
+
+def phase_kernels_ordered_categorical(x_main):
+    """The ordered and the categorical kernel against their plain versions at
+    the ragged shapes and the main-path shape, and their times there."""
+    n, d, c, k = N_MAIN, K_MAIN, C_MAIN, K_CAT
+    grad_atol = 1e-3 * N_MAIN / 3000.0
+    specs = [
+        ("glm_ordered_logistic", "math_tpu_torch/csrc/glm_fused.cu", "math_tpu/ops/pallas_glm.py:459",
+         ordered_inputs, RAGGED_ORDERED, glm_fused.ordered_logistic_glm_parts,
+         glm_fused.ordered_logistic_glm_parts_reference, ("logp", "gbeta", "gcuts")),
+        ("glm_categorical_logit", "math_tpu_torch/csrc/glm_fused.cu", "math_tpu/ops/pallas_glm.py:650",
+         categorical_inputs, RAGGED_CATEGORICAL, glm_fused.categorical_logit_glm_parts,
+         glm_fused.categorical_logit_glm_parts_reference, ("logp", "galpha", "gbeta")),
+    ]
+    entries = []
+    for i, (name, source, replaces, make, ragged_shapes, kernel, plain, names) in enumerate(specs):
+        ragged = {}
+        for j, (rn, rd, rc, rk) in enumerate(ragged_shapes):
+            y, xr, *params = make(rn, rd, rc, rk, seed=500 + 10 * i + j, scale=0.2)
+            ragged[f"n{rn}_d{rd}_c{rc}_k{rk}"], _ = compare_parts(f"{name} ragged", kernel, plain, y, [xr, *params], names, 1e-3)
+        y, _, *params = make(n, d, c, k, seed=520 + i, scale=0.1, x=x_main)
+        errs, plain_errs = compare_parts(name, kernel, plain, y, [x_main, *params], names, grad_atol)
+
+        t32 = with_y(y, [x_main, *params], torch.float32)
+        # x (20 MB) stays in the 50 MB L2 between launches, as between the sampler's gradient calls
+        ms = time_ms(lambda: kernel(*t32), warmup=3, reps=20)
+        plain_ms = time_ms(lambda: plain(*t32), warmup=2, reps=5)
+        if name == "glm_ordered_logistic":
+            flops = 4.0 * n * d * c + float(ordered_core_ops(k)) * n * c
+            # y, x, beta, cuts read; logp, gbeta, gcuts written
+            nbytes = 4.0 * (n + n * d + d * c + (k - 1) * c) + 4.0 * (c + d * c + (k - 1) * c)
+        else:
+            flops = 4.0 * n * d * c * k + float(categorical_core_ops(k)) * n * c
+            # y, x, alpha, beta read; logp, galpha, gbeta written
+            nbytes = 4.0 * (n + n * d + c * k + c * d * k) + 4.0 * (c + c * k + c * d * k)
+        del t32
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": None,  # filled from its path's run
+            "max_abs_err": max(errs.values()),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,  # no one PyTorch call computes this function with its gradients
+            "shape": {"n": n, "d": d, "c": c, "k": k},
+            "abs_err": errs,
+            "plain_f32_abs_err": plain_errs,
+            "ragged_abs_err": ragged,
+            "tolerance": {"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": grad_atol, "ragged_grad_atol": 1e-3},
+            "tflops": flops / (ms * 1e-3) / 1e12,
+        })
+    return entries
+
+
+def ordinal_data(x, seed=1):
+    """Outcomes of the ordinal regression for the design ``x``: ``beta_true ~
+    0.3 normal``, ``y = 1 + #{cuts_true < x beta_true + logistic noise}``
+    (K = 5).  Returns ``(y int32, beta_true, cuts_true)``."""
+    rng = np.random.default_rng(seed)
+    beta_true = (0.3 * rng.normal(size=x.shape[1])).astype(np.float32)
+    latent = x.astype(np.float64) @ beta_true + rng.logistic(size=x.shape[0])
+    y = 1 + np.sum(np.asarray(CUTS_TRUE)[None, :] < latent[:, None], axis=1)
+    return y.astype(np.int32), beta_true, np.asarray(CUTS_TRUE, dtype=np.float32)
+
+
+def categorical_data(x, k=K_CAT, seed=2):
+    """Outcomes of the multinomial regression for the design ``x``: ``alpha_true``,
+    ``beta_true`` ``0.3 normal`` with class 1 zero, ``y ~ categorical(softmax(x
+    beta_true + alpha_true))``.  Returns ``(y int32, alpha_true (K,), beta_true (D, K))``."""
+    rng = np.random.default_rng(seed)
+    alpha_true = 0.3 * rng.normal(size=k)
+    beta_true = 0.3 * rng.normal(size=(x.shape[1], k))
+    alpha_true[0], beta_true[:, 0] = 0.0, 0.0
+    eta = x.astype(np.float64) @ beta_true + alpha_true
+    p = np.exp(eta - eta.max(1, keepdims=True))
+    cdf = np.cumsum(p / p.sum(1, keepdims=True), axis=1)
+    y = 1 + np.minimum(np.sum(rng.uniform(size=(x.shape[0], 1)) > cdf, axis=1), k - 1)
+    return y.astype(np.int32), alpha_true.astype(np.float32), beta_true.astype(np.float32)
+
+
+def make_ordinal(d, k=K_CAT, fused=True):
+    """Ordinal regression: beta ~ normal(0, 2), cuts ~ normal(0, 5) (ordered),
+    y ~ ordered_logistic_glm(x, beta, cuts).  ``fused``: the likelihood through
+    the chain-batched dispatcher (the kernel on a GPU); else through the plain
+    ``dists`` density (the float64 reference)."""
+
+    def log_prob(p, X, y):
+        beta, cuts = p["beta"], p["cuts"]  # (C, d), (C, k - 1)
+        lp = dists.normal_lpdf(beta, 0.0, 2.0, propto=True, batch_ndims=1)
+        lp = lp + dists.normal_lpdf(cuts, 0.0, 5.0, propto=True, batch_ndims=1)
+        if fused:
+            return lp + glm_fused.ordered_logistic_glm_lpmf_chains(y, X, beta.T, cuts.T)
+        return lp + dists.ordered_logistic_glm_lpmf(y, X, beta, cuts, propto=True, batch_ndims=1)
+
+    return make_log_density({"beta": transforms.Identity(shape=(d,)), "cuts": transforms.Ordered(shape=(k - 1,))}, log_prob)
+
+
+def make_multinomial(d, k=K_CAT, fused=True):
+    """Multinomial regression with class 1 as the reference class:
+    alpha_raw ~ normal(0, 5), beta_raw ~ normal(0, 2), alpha = [0, alpha_raw],
+    beta = [0 | beta_raw], y ~ categorical_logit_glm(x, alpha, beta)."""
+
+    def log_prob(p, X, y):
+        a_raw, b_raw = p["alpha_raw"], p["beta_raw"]  # (C, k - 1), (C, d, k - 1)
+        lp = dists.normal_lpdf(a_raw, 0.0, 5.0, propto=True, batch_ndims=1)
+        lp = lp + dists.normal_lpdf(b_raw, 0.0, 2.0, propto=True, batch_ndims=1)
+        alpha, beta = F.pad(a_raw, (1, 0)), F.pad(b_raw, (1, 0))  # class 1's column is 0
+        if fused:
+            return lp + glm_fused.categorical_logit_glm_lpmf_chains(y, X, alpha, beta)
+        return lp + dists.categorical_logit_glm_lpmf(y, X, alpha, beta, propto=True, batch_ndims=1)
+
+    return make_log_density(
+        {"alpha_raw": transforms.Identity(shape=(k - 1,)), "beta_raw": transforms.Identity(shape=(d, k - 1))}, log_prob
+    )
+
+
+def drive_model_sampler(model, x, y, truth, *, chains, num_warmup, num_samples, max_depth, seed, device, dtype, tol):
+    """NUTS with pooled warmup on a GLM model of the design ``x`` and int32
+    outcomes ``y``; ``truth`` maps parameter names to their generating values.
+    Checks divergences < 5%, finite draws and ``max |posterior mean - truth| < tol``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xt = torch.tensor(x, dtype=dtype, device=device)
+    yt = torch.tensor(y, dtype=torch.int32, device=device)
+    z0 = model.initial_positions(gen, chains, device=device, dtype=dtype)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_pooled_chains(
+        gen, z0, model.logp, args=(xt, yt), num_warmup=num_warmup, num_samples=num_samples,
+        max_depth=max_depth, target_accept=0.8, device=device,
+    )
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(res.position.shape == (chains, num_samples, model.dim), f"draws have shape {tuple(res.position.shape)}")
+    pos = res.position.double().cpu().numpy()
+    require(np.isfinite(pos).all(), "non-finite draws")
+    div_rate = float(res.diverging.double().mean())
+    require(div_rate < 0.05, f"divergence rate {div_rate}")
+    draws = model.transform_draws(res.position)
+    errs = {}
+    for name, want in truth.items():
+        got = draws[name].double().reshape((-1,) + tuple(np.shape(want))).mean(0).cpu().numpy()
+        errs[name] = float(np.max(np.abs(got - want)))
+    require(max(errs.values()) < tol, f"max |posterior mean - generating value| = {errs}, limit {tol}")
+    report = {
+        "chains": chains, "n": x.shape[0], "d": x.shape[1], "dim": model.dim, "dtype": str(dtype),
+        "num_warmup": num_warmup, "num_samples": num_samples, "max_depth": max_depth, "wall_s": wall,
+        "grad_calls": res.n_grad_calls, "grad_calls_per_s": res.n_grad_calls / wall,
+        "ms_per_grad_call": wall / res.n_grad_calls * 1e3, "chain_leapfrogs_per_s": res.n_grad_calls * chains / wall,
+        "divergence_rate": div_rate, "max_abs_err_vs_truth": errs, "recovery_limit": tol,
+        "step_size": float(res.step_size), "mean_tree_depth": float(res.tree_depth.double().mean()),
+        "mean_accept": float(res.accept_prob.mean()),
+        "ess_bulk_first6": [float(v) for v in convergence.ess_bulk(pos[..., :6])],
+        "split_rhat_first6": [float(v) for v in convergence.split_rhat(pos[..., :6])],
+    }
+    return res, report, model, (xt, yt), truth
+
+
+def drive_ordinal_sampler(x, y, beta_true, cuts_true, **kw):
+    """The ordinal path: NUTS on ``make_ordinal`` (recovery limit ``tol``)."""
+    return drive_model_sampler(make_ordinal(x.shape[1]), x, y, {"beta": beta_true, "cuts": cuts_true}, **kw)
+
+
+def drive_categorical_sampler(x, y, alpha_true, beta_true, **kw):
+    """The multinomial path: NUTS on ``make_multinomial`` (recovery limit ``tol``)."""
+    truth = {"alpha_raw": alpha_true[1:], "beta_raw": beta_true[:, 1:]}
+    return drive_model_sampler(make_multinomial(x.shape[1], alpha_true.shape[0]), x, y, truth, **kw)
+
+
+def check_model_against_float64(model, reference, z, xt, yt, grad_atol):
+    """``model.logp`` and its gradient at ``z`` on the card (float32, through
+    the kernel) against autograd of the float64 plain ``dists`` density: logp
+    rtol=2e-5; gradient rtol=3e-4 and ``grad_atol`` (as the kernels phase)."""
+    lp, g = model.logp_and_grad(z, xt, yt)
+    lp64, g64 = reference.logp_and_grad(z.double(), xt.double(), yt)
+    lp_err, g_err = (lp.double() - lp64).abs(), (g.double() - g64).abs()
+    require(bool(torch.isfinite(lp).all() and torch.isfinite(g).all()), "non-finite logp or gradient")
+    require(bool((lp_err <= 2e-5 * lp64.abs()).all()), f"logp off by {float(lp_err.max())} (|logp| ~ {float(lp64.abs().max())})")
+    require(bool((g_err <= grad_atol + 3e-4 * g64.abs()).all()), f"gradient off by {float(g_err.max())}")
+    return {"logp_max_abs_err": float(lp_err.max()), "max_abs_logp": float(lp64.abs().max()),
+            "grad_max_abs_err": float(g_err.max()), "max_abs_grad": float(g64.abs().max()), "grad_atol": grad_atol}
+
+
+def map_estimate_torch(model, z0, xt, yt, steps=200):
+    """An independent reference for a path's posterior: the MAP estimate of
+    ``model`` (the float64 plain ``dists`` density) by L-BFGS from ``z0``,
+    constrained.  At N >> dim the posterior mean sits close to it, and its
+    distance from the generating values is what the data allow."""
+    z = z0.detach().double().clone().requires_grad_(True)
+    opt = torch.optim.LBFGS([z], lr=1, max_iter=steps, tolerance_grad=1e-9, tolerance_change=1e-14,
+                            line_search_fn="strong_wolfe")
+
+    def closure():
+        opt.zero_grad()
+        loss = -model.logp(z, xt.double(), yt).sum()
+        loss.backward()
+        return loss
+
+    opt.step(closure)
+    return {name: v[0] for name, v in model.constrain(z.detach()).items()}
+
+
+def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
+    """One of the two new paths: the counts set to 0 just before the sampler
+    and read just after; the kernel's launches must equal the gradient calls,
+    no other kernel and no plain version may have run; then ``logp`` and
+    gradient at 8 final positions against float64."""
+    glm_fused.reset_counts()
+    res, report, model, (xt, yt), truth = drive(
+        x, *data, chains=C_MAIN, num_warmup=150, num_samples=50, max_depth=6, seed=0,
+        device="cuda", dtype=torch.float32, tol=tol,
+    )
+    launches = dict(glm_fused.LAUNCHES)
+    plain_calls = dict(glm_fused.PLAIN_CALLS)
+    require(launches[family] == res.n_grad_calls > 0, f"{launches[family]} launches for {res.n_grad_calls} gradient calls")
+    require(all(v == 0 for f, v in launches.items() if f != family), f"another kernel ran: {launches}")
+    require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the {label}: {plain_calls}")
+    entry["launches"] = launches[family]
+    z_final = res.position[:8, -1, :].contiguous()
+    check = check_model_against_float64(model, reference, z_final, xt, yt, 1e-3 * x.shape[0] / 3000.0)
+    theta_map = map_estimate_torch(reference, res.position.mean((0, 1))[None], xt, yt)
+    draws = model.transform_draws(res.position)
+    map_report = {
+        name: {"max_abs_map_err_vs_truth": float((v.cpu() - torch.as_tensor(truth[name], dtype=v.dtype)).abs().max()),
+               "max_abs_mean_err_vs_map": float((draws[name].double().mean((0, 1)) - v).abs().max())}
+        for name, v in theta_map.items()
+    }
+    emit(label, **report, kernel_launches=launches[family], plain_calls=plain_calls, vs_float64_at_8_final_positions=check,
+         float64_map=map_report)
+    return res, model, (xt, yt)
 
 
 # ---------------------------------------------------------------------------
@@ -759,20 +1096,40 @@ def phase_eight_schools():
 
 
 def main():
+    profiling = "--profile" in sys.argv[1:]
     smi = phase_device()
     phase_build()
     x, y, beta_true, _ = glm_logistic.synthetic_data(N_MAIN, K_MAIN)
     entries = phase_kernels(x)
     chol_entry = phase_kernels_chol(gp_regression.synthetic_data(N_GP, seed=0)[0])
+    ord_entry, cat_entry = phase_kernels_ordered_categorical(x)
     res = phase_main_path(x, y, beta_true, entries)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(x, y, res)
+    if profiling:
+        args = (torch.tensor(x, device="cuda"), torch.tensor(y, device="cuda"))
+        phase_profile(res, glm_logistic.make(K_MAIN), args)
     del res
+
+    res, model, args = phase_glm_path(
+        "ordinal_path", glm_fused.ORDERED, ord_entry, drive_ordinal_sampler, make_ordinal(K_MAIN, fused=False),
+        x, ordinal_data(x), tol=0.05,
+    )
+    if profiling:
+        phase_profile(res, model, args, label="profile_ordinal")
+    res, model, args = phase_glm_path(
+        "categorical_path", glm_fused.CATEGORICAL, cat_entry, drive_categorical_sampler, make_multinomial(K_MAIN, fused=False),
+        x, categorical_data(x), tol=0.08,
+    )
+    if profiling:
+        phase_profile(res, model, args, label="profile_categorical")
+    del res, model, args
+    entries += [ord_entry, cat_entry]
+
     gp_res, gp_model, gp_x, gp_y = phase_gp_path(chol_entry)
     entries.append(chol_entry)
-    if "--profile" in sys.argv[1:]:
+    if profiling:
         phase_profile_gp(gp_res, gp_model, gp_x, gp_y)
     phase_eight_schools()
+    require(len(entries) == 7, f"{len(entries)} kernel entries")
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

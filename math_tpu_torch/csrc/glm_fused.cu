@@ -1,51 +1,77 @@
-// Fused GLM log-prob + parameter gradients for a batch of chains, four families.
+// Fused GLM log-prob + parameter gradients for a batch of chains: the port's
+// three GLM kernels, which share their tiles, their two products and their
+// second pass.
 //
-// Replaces the TPU kernel math_tpu/ops/pallas_glm.py::_glm_kernel (launched by
-// _fused_forward).  For y (N,), x (N, K) row-major, alpha (C,), beta (K, C)
-// row-major and, for the sigma/phi families, extra (C,), all float32:
+// Replaces the TPU kernels of math_tpu/ops/pallas_glm.py:
 //
-//     eta    = x @ beta + alpha                  (N, C), never leaves the chip
-//     logp   = sum_n lp(eta, y, extra)           (C,)
-//     theta' = d lp / d eta
-//     ga     = sum_n theta'                      (C,)
-//     gb     = x^T @ theta'                      (K, C)
-//     ge     = sum_n d lp / d extra              (C,)   sigma / phi families
+//   glm_fused_kernel<F>      _glm_kernel          four families, eta = x @ beta + alpha
+//   glm_ordered_kernel       _ordered_kernel      ordered-logistic GLM
+//   glm_categorical_kernel   _categorical_kernel  categorical-logit GLM
 //
-// so x is read once for the value and every parameter gradient.  Only the
-// eta-dependent part of the density is computed here; terms in (y, extra)
-// alone (-N log sigma, the lgamma terms of NB-2) stay in plain PyTorch.
+// Four families.  y (N,), x (N, K) row-major, alpha (C,), beta (K, C) row-major
+// and, for the sigma/phi families, extra (C,), all float32:
 //
-// What bounds it: operations.  The two products are 4*N*K*C flops on
-// 4*(N*K + N + 2*K*C + 3*C) bytes, about 250 flops per byte at K=50, C=256,
-// against about 20 flops per byte where an H100's float32 units (67 TFLOP/s
-// outside the tensor cores) meet its memory (3.35 TB/s).  Products are plain
-// float32 FMAs, as the TPU kernel pins float32 products: no TF32 mma.
+//     logp = sum_n lp(eta, y, extra)   ga = sum_n theta'   gb = x^T theta'
+//     ge   = sum_n d lp / d extra      theta' = d lp / d eta
 //
-// Design (what differs from the TPU kernel, whose grid runs in order and
-// accumulates into its output block):
+// Only the eta-dependent part of the density is computed here; terms in
+// (y, extra) alone (-N log sigma, the lgamma terms of NB-2) stay in PyTorch.
+//
+// Ordered logistic.  y (N,) int32 in 1..K, x (N, D), beta (D, C), cuts (K-1, C):
+//
+//     u2 = c_y - eta,  u1 = c_{y-1} - eta              c_0 = -1e4, c_K = +1e4
+//     lp = u2 - sp(u2) - sp(u1) + log1m_exp(u1 - u2)   sp = softplus
+//     w2 = exp(u2 - 2 sp(u2) - lp),  w1 = exp(u1 - 2 sp(u1) - lp)
+//     logp = sum_n lp,  gbeta = x^T (w1 - w2),  gcuts_j = sum_{y=j} w2 - sum_{y=j+1} w1
+//
+// Categorical logit.  y (N,) int32 in 1..K, x (N, D), alpha (C, K), beta (C, D, K):
+//
+//     eta[c] = x @ beta[c] + alpha[c]   lp = eta_y - logsumexp_k eta_k
+//     theta' = onehot(y) - softmax(eta)
+//     logp = sum_n lp,  galpha = sum_n theta',  gbeta = x^T theta'
+//
+// Read beta as a (D, C*K) matrix, column c*K + k: then eta is one product with
+// C*K columns, and the softmax runs over groups of K adjacent columns.  A
+// 64-column tile holds floor(64/K) whole chains (60 of 64 columns at K=5).  The
+// (C, D, K) -> (D, C*K) view is indexed when the beta tile is staged (once per
+// block) and when gbeta is written back, so no permuted copy is made per call.
+//
+// The categories are assumed valid (as the JAX dispatchers assume); y is
+// clamped into 1..K only so that an invalid value cannot read outside a tile.
+//
+// What bounds them: operations.  The two products are 4*N*D*C flops (times K
+// for the categorical) on about 4*(N*D + N) bytes of data, some 250 flops per
+// byte at D=50, C=256, against about 20 where an H100's float32 units
+// (67 TFLOP/s outside the tensor cores) meet its memory (3.35 TB/s).  Products
+// are plain float32 FMAs, as the TPU kernels pin float32 products: no TF32 mma.
+//
+// Design (what differs from the TPU kernels, whose grids run in order and
+// accumulate into their output blocks):
 //  * Blocks run in parallel, so each block loops over many row tiles, keeps
-//    its sums on chip, and writes ONE partial per block to a scratch tensor
-//    the wrapper allocated; a second small kernel adds the partials over the
-//    blocks in a fixed order in double.  No float atomics: the result is
-//    deterministic.
-//  * A (1024, C) eta tile does not fit a block's shared memory, so rows AND
-//    chains are tiled, 64 x 64.  Each block stages its beta tile once, then
-//    per row tile: the x tile, eta by 4x4 register tiles, the family core,
-//    theta' to shared memory, and the block's gb contribution from the same
-//    staged x tile.  Tiling chains means x is streamed once per chain tile
-//    (4 times at C=256); a 20 MB design matrix stays in the 50 MB L2, so the
-//    device memory still sees it about once.
-//  * Ragged edges (N not a multiple of 64, C not a multiple of 64) are masked
-//    in the kernel; nothing is padded or copied on the host side.
-//  * A row of K=50 floats is 200 bytes, so rows are not 16-byte aligned; a
-//    tile of 64 consecutive rows is one contiguous span and is copied flat,
-//    4 bytes a thread, coalesced.
+//    its sums on chip, and writes ONE partial per block to a scratch tensor the
+//    wrapper allocated; reduce_partials_kernel adds the partials over the
+//    blocks in a fixed order in double.  No float atomics: deterministic.
+//  * Rows AND chains are tiled, 64 x 64.  Each block stages its beta tile once,
+//    then per row tile: the x tile (stage_x_tile), eta by 4x4 register tiles
+//    (eta_product), the likelihood core, theta' to shared memory, and the
+//    block's x^T theta' from the same staged x tile (xt_theta_product).  x is
+//    streamed once per chain tile; a 20 MB design matrix stays in the 50 MB L2.
+//  * Ragged edges are masked in the kernels; nothing is padded on the host.
+//  * The TPU kernels gather the cut pair and scatter gcuts with one-hot
+//    matmuls (the MXU doing a gather); here the pair is read by index from the
+//    extended cut tile, and gcuts is summed by one thread per (cut, chain)
+//    walking the tile's 64 rows in order.  expm1f / log1pf come from the CUDA
+//    math library (the TPU kernel carries a polynomial expm1).
+//  * The categorical TPU kernel's (C, 1, K) lane-0 logp block is a Mosaic
+//    tiling rule: logp (C,) is written directly.  galpha is the x^T theta'
+//    product against a column of ones (row D of the block's sums).
 //
-// Left for the change that makes it fast: wgmma with a 3xTF32 split (or
-// packed FMA), TMA staging of the x tile into a ring so loads overlap the
-// products, persistent blocks sized to the SM count, and a single pass over x
-// for all chain tiles (a cluster sharing the x tile).  Shared memory is
-// 4*(64*64 + 2*64*K + 64*K + 64) bytes (55 KB at K=50), which limits K to 280.
+// Shared memory per block, 4 bytes a float: kernel 1 64*64 + 2*64*K + 64*K + 64
+// (55 KB at K=50); ordered 3*64*64 + 2*64*D + 2*64*K + 64*D + 64 (89 KB at D=50,
+// K=5); categorical 64*64 + 2*64*D + 64 + 64*floor(64/K) + 64*D + 64 (58 KB).
+// The wrappers refuse what does not fit.  Left for the change that makes them
+// fast: wgmma with a 3xTF32 split, TMA staging of the x tile into a ring, and
+// one pass over x for all chain tiles.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,12 +79,15 @@
 namespace {
 
 constexpr int TM = 64;        // rows per tile
-constexpr int TC = 64;        // chains per tile
+constexpr int TC = 64;        // columns (chains; for the categorical, chain x class) per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 register tile
 constexpr int RM = 4;
 constexpr int RC = 4;
+constexpr float ORD_BIG = 1e4f;  // stands in for the -/+ inf boundary cuts
 
-enum Family { BERNOULLI_LOGIT = 0, POISSON_LOG = 1, NORMAL_ID = 2, NEG_BINOMIAL_2_LOG = 3 };
+// ---------------------------------------------------------------------------
+// Shared pieces
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float softplus_f(float t) {
     return fmaxf(t, 0.0f) + log1pf(expf(-fabsf(t)));
@@ -69,6 +98,146 @@ __device__ __forceinline__ float sigmoid_f(float t) {
     const float s = 1.0f / (1.0f + e);
     return t >= 0.0f ? s : e * s;
 }
+
+// log(1 - exp(t)) for t < 0: the reference's two branches, split at -ln 2.
+__device__ __forceinline__ float log1m_exp_f(float t) {
+    t = fminf(t, -1e-20f);
+    return t > -0.693147f ? logf(-expm1f(t)) : log1pf(-expf(fmaxf(t, -80.0f)));
+}
+
+// dst (rows, TC) <- columns c0 .. c0+63 of the row-major src (rows, c), zero
+// past the last column.
+__device__ __forceinline__ void stage_column_tile(float* dst, const float* __restrict__ src, int rows, int c, int c0) {
+    for (int i = threadIdx.x; i < rows * TC; i += THREADS) {
+        const int cc = c0 + i % TC;
+        dst[i] = cc < c ? src[(size_t)(i / TC) * c + cc] : 0.0f;
+    }
+}
+
+// The x rows r0 .. r0+63: one contiguous span of TM*d floats, copied flat, 4
+// bytes a thread, coalesced (a row of 50 floats is not 16-byte aligned); zeros
+// past the last row.
+__device__ __forceinline__ void stage_x_tile(float* xs, const float* __restrict__ x, int r0, int n, int d) {
+    const long long base = (long long)r0 * d;
+    const long long total = (long long)n * d;
+    for (int i = threadIdx.x; i < TM * d; i += THREADS) {
+        xs[i] = (base + i < total) ? x[base + i] : 0.0f;
+    }
+}
+
+// acc = x_tile @ b_tile for this thread's rows ty*4 .. ty*4+3 and columns
+// tx*4 .. tx*4+3.
+__device__ __forceinline__ void eta_product(float (&acc)[RM][RC], const float* xs, const float* bs, int d) {
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+#pragma unroll
+        for (int j = 0; j < RC; ++j) acc[i][j] = 0.0f;
+    }
+    const float* xr = xs + (ty * RM) * d;
+    for (int kk = 0; kk < d; ++kk) {
+        const float4 b4 = *reinterpret_cast<const float4*>(bs + kk * TC + tx * RC);
+        const float b[RC] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+            const float xv = xr[i * d + kk];
+#pragma unroll
+            for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(xv, b[j], acc[i][j]);
+        }
+    }
+}
+
+// gs (d, TC) += x_tile^T @ th_tile; with kOnesRow also gs row d += the column
+// sums of th (x extended by a column of ones).  A thread owns 4 rows of gs
+// (k0 .. k0+3) by 4 columns; each entry of gs has exactly one owner.
+template <bool kOnesRow>
+__device__ __forceinline__ void xt_theta_product(float* gs, const float* xs, const float* th, int d) {
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+    const int rows = kOnesRow ? d + 1 : d;
+    for (int k0 = ty * 4; k0 < rows; k0 += 64) {
+        const int kn = min(4, rows - k0);
+        float g[4][RC];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+            for (int j = 0; j < RC; ++j) g[q][j] = 0.0f;
+        }
+        for (int r = 0; r < TM; ++r) {
+            const float4 t4 = *reinterpret_cast<const float4*>(th + r * TC + tx * RC);
+            const float tv[RC] = {t4.x, t4.y, t4.z, t4.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int col = k0 + q;
+                const float xv = q < kn ? ((!kOnesRow || col < d) ? xs[r * d + col] : 1.0f) : 0.0f;
+#pragma unroll
+                for (int j = 0; j < RC; ++j) g[q][j] = fmaf(xv, tv[j], g[q][j]);
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            if (q < kn) {
+#pragma unroll
+                for (int j = 0; j < RC; ++j) gs[(k0 + q) * TC + tx * RC + j] += g[q][j];
+            }
+        }
+    }
+}
+
+// Sums of Q per-thread (C,) quantities over the 16 row groups of the block, in
+// a fixed order, through red (Q * 16 * TC floats).  Thread tid < Q*TC gets the
+// sum of quantity tid / TC at tile column tid % TC; the others get 0.
+template <int Q>
+__device__ __forceinline__ float row_group_sum(float* red, const float (&v)[Q][RC]) {
+    const int tid = threadIdx.x;
+    const int tx = tid % 16;
+    const int ty = tid / 16;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+#pragma unroll
+        for (int j = 0; j < RC; ++j) red[(q * 16 + ty) * TC + tx * RC + j] = v[q][j];
+    }
+    __syncthreads();
+    float s = 0.0f;
+    if (tid < Q * TC) {
+        const int which = tid / TC;
+        const int cc = tid % TC;
+        for (int g = 0; g < 16; ++g) s += red[(which * 16 + g) * TC + cc];
+    }
+    return s;
+}
+
+// out[i] = sum over blocks of partials[b][i], in block order, in double.
+__global__ void reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
+                                       int row_blocks, long long m) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= m) return;
+    double s = 0.0;
+    for (int b = 0; b < row_blocks; ++b) s += (double)partials[(size_t)b * m + i];
+    out[i] = (float)s;
+}
+
+// The first pass with its shared memory, then the second pass over the
+// partials (m floats a block) into out.  Returns the first CUDA error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_two_pass(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, float* partials, void* out,
+                            long long m, Args... args) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, THREADS, smem, stream>>>(args..., partials);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    reduce_partials_kernel<<<(unsigned)((m + 255) / 256), 256, 0, stream>>>(partials, static_cast<float*>(out),
+                                                                              (int)grid.x, m);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 1: four families with one linear predictor per chain
+// ---------------------------------------------------------------------------
+
+enum Family { BERNOULLI_LOGIT = 0, POISSON_LOG = 1, NORMAL_ID = 2, NEG_BINOMIAL_2_LOG = 3 };
 
 // Family cores: lp(eta), theta' = dlp/deta, de = dlp/dextra.  aux is
 // 1/sigma for normal_id and log(phi) for neg_binomial_2_log.
@@ -105,8 +274,7 @@ template <int F>
 __global__ void __launch_bounds__(THREADS)
 glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
                  const float* __restrict__ alpha, const float* __restrict__ beta,
-                 const float* __restrict__ extra, float* __restrict__ partials,
-                 int n, int k, int c) {
+                 const float* __restrict__ extra, int n, int k, int c, float* __restrict__ partials) {
     extern __shared__ float4 smem4[];
     float* th = reinterpret_cast<float*>(smem4);  // TM * TC   theta' tile
     float* bs = th + TM * TC;                     // k * TC    beta tile
@@ -120,12 +288,8 @@ glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
     const int c0 = blockIdx.y * TC;
     constexpr bool kHasExtra = (F == NORMAL_ID) || (F == NEG_BINOMIAL_2_LOG);
 
-    for (int i = tid; i < k * TC; i += THREADS) {
-        const int kk = i / TC;
-        const int cc = c0 + i % TC;
-        bs[i] = cc < c ? beta[(size_t)kk * c + cc] : 0.0f;
-        gbs[i] = 0.0f;
-    }
+    stage_column_tile(bs, beta, k, c, c0);
+    for (int i = tid; i < k * TC; i += THREADS) gbs[i] = 0.0f;
 
     float a[RC], e0[RC], e1[RC];
     bool cv[RC];
@@ -138,49 +302,27 @@ glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
         e1[j] = (F == NORMAL_ID) ? 1.0f / e0[j] : ((F == NEG_BINOMIAL_2_LOG) ? logf(e0[j]) : 0.0f);
     }
 
-    float s_lp[RC], s_ga[RC], s_ge[RC];
+    float sums[3][RC];  // logp, ga, ge
 #pragma unroll
-    for (int j = 0; j < RC; ++j) {
-        s_lp[j] = 0.0f;
-        s_ga[j] = 0.0f;
-        s_ge[j] = 0.0f;
+    for (int q = 0; q < 3; ++q) {
+#pragma unroll
+        for (int j = 0; j < RC; ++j) sums[q][j] = 0.0f;
     }
 
     const int n_tiles = (n + TM - 1) / TM;
-    const long long total = (long long)n * k;
-
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const int r0 = t * TM;
-        const long long base = (long long)r0 * k;
         // the previous tile's second product is done with xs and th (and, on
         // the first pass, bs and gbs are staged)
         __syncthreads();
-        for (int i = tid; i < TM * k; i += THREADS) {
-            xs[i] = (base + i < total) ? x[base + i] : 0.0f;
-        }
+        stage_x_tile(xs, x, r0, n, k);
         if (tid < TM) {
             ys[tid] = (r0 + tid < n) ? y[r0 + tid] : 0.0f;
         }
         __syncthreads();
 
-        // eta = x_tile @ beta_tile, 4 rows x 4 chains a thread
         float acc[RM][RC];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-#pragma unroll
-            for (int j = 0; j < RC; ++j) acc[i][j] = 0.0f;
-        }
-        const float* xr = xs + (ty * RM) * k;
-        for (int kk = 0; kk < k; ++kk) {
-            const float4 b4 = *reinterpret_cast<const float4*>(bs + kk * TC + tx * RC);
-            const float b[RC] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int i = 0; i < RM; ++i) {
-                const float xv = xr[i * k + kk];
-#pragma unroll
-                for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(xv, b[j], acc[i][j]);
-            }
-        }
+        eta_product(acc, xs, bs, k);
 
         // family core; theta' to shared memory, the (C,) sums stay in registers
 #pragma unroll
@@ -197,9 +339,9 @@ glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
                 lp = ok ? lp : 0.0f;
                 tp = ok ? tp : 0.0f;
                 de = ok ? de : 0.0f;
-                s_lp[j] += lp;
-                s_ga[j] += tp;
-                s_ge[j] += de;
+                sums[0][j] += lp;
+                sums[1][j] += tp;
+                sums[2][j] += de;
                 tpv[j] = tp;
             }
             *reinterpret_cast<float4*>(th + rr * TC + tx * RC) =
@@ -207,94 +349,274 @@ glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
         }
         __syncthreads();
 
-        // gb += x_tile^T @ theta'_tile: a thread owns 4 columns of x (k0..k0+3)
-        // by 4 chains; each (k, chain) of gbs has exactly one owner
-        for (int k0 = ty * 4; k0 < k; k0 += 64) {
-            const int kn = min(4, k - k0);
-            float g[4][RC];
+        xt_theta_product<false>(gbs, xs, th, k);
+    }
+    __syncthreads();
+
+    // th is free now
+    const float s = row_group_sum<3>(th, sums);
+    float* part = partials + (size_t)blockIdx.x * (size_t)(k + 3) * c;
+    if (tid < 3 * TC && c0 + tid % TC < c) part[(size_t)(tid / TC) * c + c0 + tid % TC] = s;
+    for (int i = tid; i < k * TC; i += THREADS) {
+        const int cc = c0 + i % TC;
+        if (cc < c) part[(size_t)(3 + i / TC) * c + cc] = gbs[i];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: ordered logistic
+// ---------------------------------------------------------------------------
+
+// partials: (gridDim.x, D + K, C); row 0 is logp, rows 1..D gbeta, rows D+1.. gcuts.
+__global__ void __launch_bounds__(THREADS)
+glm_ordered_kernel(const int* __restrict__ y, const float* __restrict__ x,
+                   const float* __restrict__ beta, const float* __restrict__ cuts,
+                   int n, int d, int c, int kcat, float* __restrict__ partials) {
+    extern __shared__ float4 smem4[];
+    float* th = reinterpret_cast<float*>(smem4);  // TM * TC        theta' tile
+    float* w1s = th + TM * TC;                    // TM * TC        w1 tile
+    float* w2s = w1s + TM * TC;                   // TM * TC        w2 tile
+    float* bs = w2s + TM * TC;                    // d * TC         beta tile
+    float* gbs = bs + d * TC;                     // d * TC         this block's gbeta sums
+    float* ce = gbs + d * TC;                     // (kcat+1) * TC  extended cut tile
+    float* gcs = ce + (kcat + 1) * TC;            // (kcat-1) * TC  this block's gcuts sums
+    float* xs = gcs + (kcat - 1) * TC;            // TM * d         x tile, flat
+    int* ys = reinterpret_cast<int*>(xs + TM * d);  // TM
+
+    const int tid = threadIdx.x;
+    const int tx = tid % 16;  // chains tx*4 .. tx*4+3 of the tile
+    const int ty = tid / 16;  // rows   ty*4 .. ty*4+3 of the tile
+    const int c0 = blockIdx.y * TC;
+
+    stage_column_tile(bs, beta, d, c, c0);
+    for (int i = tid; i < d * TC; i += THREADS) gbs[i] = 0.0f;
+    stage_column_tile(ce + TC, cuts, kcat - 1, c, c0);
+    if (tid < TC) {
+        ce[tid] = -ORD_BIG;
+        ce[kcat * TC + tid] = ORD_BIG;
+    }
+    for (int i = tid; i < (kcat - 1) * TC; i += THREADS) gcs[i] = 0.0f;
+
+    bool cv[RC];
+    float s_lp[1][RC];
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
+    for (int j = 0; j < RC; ++j) {
+        cv[j] = c0 + tx * RC + j < c;
+        s_lp[0][j] = 0.0f;
+    }
+
+    const int n_tiles = (n + TM - 1) / TM;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int r0 = t * TM;
+        // the previous tile's second product and cut sums are done with xs,
+        // th, w1s, w2s and ys (and, on the first pass, the tiles are staged)
+        __syncthreads();
+        stage_x_tile(xs, x, r0, n, d);
+        if (tid < TM) {
+            ys[tid] = (r0 + tid < n) ? min(max(y[r0 + tid], 1), kcat) : 1;
+        }
+        __syncthreads();
+
+        float acc[RM][RC];
+        eta_product(acc, xs, bs, d);
+
+        // the core; theta', w1, w2 to shared memory, the logp sums in registers
 #pragma unroll
-                for (int j = 0; j < RC; ++j) g[q][j] = 0.0f;
+        for (int i = 0; i < RM; ++i) {
+            const int rr = ty * RM + i;
+            const bool rv = (r0 + rr) < n;
+            const int yv = ys[rr];
+            float tpv[RC], w1v[RC], w2v[RC];
+#pragma unroll
+            for (int j = 0; j < RC; ++j) {
+                const int cc = tx * RC + j;
+                const float eta = acc[i][j];
+                const float u2 = ce[yv * TC + cc] - eta;
+                const float u1 = ce[(yv - 1) * TC + cc] - eta;
+                const float sp2 = softplus_f(u2);
+                const float sp1 = softplus_f(u1);
+                float lp = u2 - sp2 - sp1 + log1m_exp_f(u1 - u2);
+                float w2 = expf(u2 - 2.0f * sp2 - lp);
+                float w1 = expf(u1 - 2.0f * sp1 - lp);
+                const bool ok = rv && cv[j];
+                lp = ok ? lp : 0.0f;
+                w1 = ok ? w1 : 0.0f;
+                w2 = ok ? w2 : 0.0f;
+                s_lp[0][j] += lp;
+                tpv[j] = w1 - w2;
+                w1v[j] = w1;
+                w2v[j] = w2;
             }
+            *reinterpret_cast<float4*>(th + rr * TC + tx * RC) = make_float4(tpv[0], tpv[1], tpv[2], tpv[3]);
+            *reinterpret_cast<float4*>(w1s + rr * TC + tx * RC) = make_float4(w1v[0], w1v[1], w1v[2], w1v[3]);
+            *reinterpret_cast<float4*>(w2s + rr * TC + tx * RC) = make_float4(w2v[0], w2v[1], w2v[2], w2v[3]);
+        }
+        __syncthreads();
+
+        xt_theta_product<false>(gbs, xs, th, d);
+
+        // gcuts: one task per (cut j, chain), the tile's rows in order
+        for (int i = tid; i < (kcat - 1) * TC; i += THREADS) {
+            const int cut = i / TC + 1;  // 1-based cut index
+            const int cc = i % TC;
+            float s = 0.0f;
             for (int r = 0; r < TM; ++r) {
-                const float4 t4 = *reinterpret_cast<const float4*>(th + r * TC + tx * RC);
-                const float tv[RC] = {t4.x, t4.y, t4.z, t4.w};
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const float xv = q < kn ? xs[r * k + k0 + q] : 0.0f;
-#pragma unroll
-                    for (int j = 0; j < RC; ++j) g[q][j] = fmaf(xv, tv[j], g[q][j]);
-                }
+                const int yr = ys[r];
+                s += (yr == cut ? w2s[r * TC + cc] : 0.0f) - (yr == cut + 1 ? w1s[r * TC + cc] : 0.0f);
             }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                if (q < kn) {
-#pragma unroll
-                    for (int j = 0; j < RC; ++j) gbs[(k0 + q) * TC + tx * RC + j] += g[q][j];
-                }
-            }
+            gcs[i] += s;
         }
     }
     __syncthreads();
 
-    // (C,) sums: across the 16 row groups in a fixed order; th is free now
-    float* red = th;  // 3 x 16 x TC
+    // th is free now
+    const float s = row_group_sum<1>(th, s_lp);
+    float* part = partials + (size_t)blockIdx.x * (size_t)(d + kcat) * c;
+    if (tid < TC && c0 + tid < c) part[c0 + tid] = s;
+    for (int i = tid; i < d * TC; i += THREADS) {
+        const int cc = c0 + i % TC;
+        if (cc < c) part[(size_t)(1 + i / TC) * c + cc] = gbs[i];
+    }
+    for (int i = tid; i < (kcat - 1) * TC; i += THREADS) {
+        const int cc = c0 + i % TC;
+        if (cc < c) part[(size_t)(1 + d + i / TC) * c + cc] = gcs[i];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3: categorical logit
+// ---------------------------------------------------------------------------
+
+// partials: (gridDim.x, C*(1 + K + D*K)); logp (C), galpha (C, K), gbeta (C, D, K).
+__global__ void __launch_bounds__(THREADS)
+glm_categorical_kernel(const int* __restrict__ y, const float* __restrict__ x,
+                       const float* __restrict__ alpha, const float* __restrict__ beta,
+                       int n, int d, int c, int kcls, float* __restrict__ partials) {
+    const int cpt = TC / kcls;     // chains per tile
+    const int used = cpt * kcls;   // columns of the tile that hold a class
+    extern __shared__ float4 smem4[];
+    float* th = reinterpret_cast<float*>(smem4);  // TM * TC       eta, then theta' in place
+    float* bs = th + TM * TC;                     // d * TC        beta tile, column q*K + k
+    float* gbs = bs + d * TC;                     // (d+1) * TC    gbeta sums; row d: galpha
+    float* lps = gbs + (d + 1) * TC;              // TM * cpt      lp of each (row, chain)
+    float* xs = lps + TM * cpt;                   // TM * d        x tile, flat
+    int* ys = reinterpret_cast<int*>(xs + TM * d);  // TM
+
+    const int tid = threadIdx.x;
+    const int tx = tid % 16;  // columns tx*4 .. tx*4+3 of the tile
+    const int ty = tid / 16;  // rows    ty*4 .. ty*4+3 of the tile
+    const int c0 = blockIdx.y * cpt;  // first chain of the tile
+
+    for (int i = tid; i < d * TC; i += THREADS) {
+        const int dd = i / TC;
+        const int j = i % TC;
+        const int cj = c0 + j / kcls;
+        bs[i] = (j < used && cj < c) ? beta[((size_t)cj * d + dd) * kcls + j % kcls] : 0.0f;
+    }
+    for (int i = tid; i < (d + 1) * TC; i += THREADS) gbs[i] = 0.0f;
+
+    float a[RC];
+    bool cv[RC];
 #pragma unroll
     for (int j = 0; j < RC; ++j) {
-        red[(0 * 16 + ty) * TC + tx * RC + j] = s_lp[j];
-        red[(1 * 16 + ty) * TC + tx * RC + j] = s_ga[j];
-        red[(2 * 16 + ty) * TC + tx * RC + j] = s_ge[j];
+        const int col = tx * RC + j;
+        const int cj = c0 + col / kcls;
+        cv[j] = col < used && cj < c;
+        a[j] = cv[j] ? alpha[(size_t)cj * kcls + col % kcls] : 0.0f;
+    }
+    // threads tid < cpt: the logp sum of chain c0 + tid.  One thread adds all
+    // of a block's rows of its chain (thousands), so each tile's 64 rows are
+    // summed in float and the tile sums in double.
+    double s_lp = 0.0;
+
+    const int n_tiles = (n + TM - 1) / TM;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int r0 = t * TM;
+        // the previous tile's product and logp sums are done with xs, th, lps
+        __syncthreads();
+        stage_x_tile(xs, x, r0, n, d);
+        if (tid < TM) {
+            ys[tid] = (r0 + tid < n) ? min(max(y[r0 + tid], 1), kcls) : 1;
+        }
+        __syncthreads();
+
+        // eta = x_tile @ beta_tile + alpha, to shared memory
+        float acc[RM][RC];
+        eta_product(acc, xs, bs, d);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+            float e[RC];
+#pragma unroll
+            for (int j = 0; j < RC; ++j) e[j] = cv[j] ? acc[i][j] + a[j] : 0.0f;
+            *reinterpret_cast<float4*>(th + (ty * RM + i) * TC + tx * RC) = make_float4(e[0], e[1], e[2], e[3]);
+        }
+        __syncthreads();
+
+        // lp and theta' of each (row, chain) from its K logits, in place
+        for (int task = tid; task < TM * cpt; task += THREADS) {
+            const int r = task / cpt;
+            const int q = task % cpt;
+            float* e = th + r * TC + q * kcls;
+            const bool ok = (r0 + r < n) && (c0 + q < c);
+            const int yk = ys[r] - 1;
+            float m = e[0];
+            for (int k = 1; k < kcls; ++k) m = fmaxf(m, e[k]);
+            float s = 0.0f;
+            for (int k = 0; k < kcls; ++k) s += expf(e[k] - m);
+            const float inv_s = 1.0f / s;
+            lps[r * cpt + q] = ok ? e[yk] - (m + logf(s)) : 0.0f;
+            for (int k = 0; k < kcls; ++k) {
+                const float tp = (k == yk ? 1.0f : 0.0f) - expf(e[k] - m) * inv_s;
+                e[k] = ok ? tp : 0.0f;
+            }
+        }
+        __syncthreads();
+
+        if (tid < cpt) {
+            float tile = 0.0f;
+            for (int r = 0; r < TM; ++r) tile += lps[r * cpt + tid];
+            s_lp += (double)tile;
+        }
+
+        // [gbeta; galpha] += [x_tile, 1]^T @ theta'_tile
+        xt_theta_product<true>(gbs, xs, th, d);
     }
     __syncthreads();
 
-    float* part = partials + (size_t)blockIdx.x * (size_t)(k + 3) * c;
-    if (tid < 3 * TC) {
-        const int which = tid / TC;
-        const int cc = tid % TC;
-        float s = 0.0f;
-        for (int q = 0; q < 16; ++q) s += red[(which * 16 + q) * TC + cc];
-        if (c0 + cc < c) part[(size_t)which * c + c0 + cc] = s;
+    const size_t m = (size_t)c * (1 + kcls + (size_t)d * kcls);
+    float* part = partials + (size_t)blockIdx.x * m;
+    float* part_ga = part + c;
+    float* part_gb = part_ga + (size_t)c * kcls;
+    if (tid < cpt && c0 + tid < c) part[c0 + tid] = (float)s_lp;
+    for (int i = tid; i < (d + 1) * TC; i += THREADS) {
+        const int dd = i / TC;
+        const int j = i % TC;
+        const int cj = c0 + j / kcls;
+        if (j >= used || cj >= c) continue;
+        const int k = j % kcls;
+        if (dd < d) {
+            part_gb[((size_t)cj * d + dd) * kcls + k] = gbs[i];
+        } else {
+            part_ga[(size_t)cj * kcls + k] = gbs[i];
+        }
     }
-    for (int i = tid; i < k * TC; i += THREADS) {
-        const int kk = i / TC;
-        const int cc = c0 + i % TC;
-        if (cc < c) part[(size_t)(3 + kk) * c + cc] = gbs[i];
-    }
-}
-
-// out[i] = sum over blocks of partials[b][i], in block order, in double.
-__global__ void glm_reduce_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                                  int row_blocks, int m) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m) return;
-    double s = 0.0;
-    for (int b = 0; b < row_blocks; ++b) s += (double)partials[(size_t)b * m + i];
-    out[i] = (float)s;
-}
-
-template <int F>
-cudaError_t launch_family(const float* y, const float* x, const float* alpha, const float* beta,
-                          const float* extra, float* partials, int n, int k, int c,
-                          int row_blocks, size_t smem, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(glm_fused_kernel<F>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(row_blocks, (c + TC - 1) / TC);
-    glm_fused_kernel<F><<<grid, THREADS, smem, stream>>>(y, x, alpha, beta, extra, partials, n, k, c);
-    return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory one block needs for k columns.
+// ---------------------------------------------------------------------------
+// The C interface.  Each *_launch takes a float32 scratch of row_blocks
+// partials and writes out; it returns the CUDA error code of its launches
+// (0: both passes were accepted).
+// ---------------------------------------------------------------------------
+
+// Bytes of dynamic shared memory one block of kernel 1 needs for k columns.
 extern "C" long long glm_fused_smem_bytes(int k) {
     return (long long)sizeof(float) * ((long long)TM * TC + 2LL * k * TC + (long long)TM * k + TM);
 }
 
-// partials: (row_blocks, k + 3, c) float32 scratch; out: (k + 3, c) float32 with
-// rows logp, ga, ge, gb[0..k).  extra may be null for the families without one.
-// Returns the CUDA error code of the launches (0: both were accepted).
+// partials: (row_blocks, k + 3, c); out: (k + 3, c) with rows logp, ga, ge,
+// gb[0..k).  extra may be null for the families without one.
 extern "C" int glm_fused_launch(int family, const void* y, const void* x, const void* alpha,
                                 const void* beta, const void* extra, void* partials, void* out,
                                 int n, int k, int c, int row_blocks, void* stream_ptr) {
@@ -306,26 +628,69 @@ extern "C" int glm_fused_launch(int family, const void* y, const void* x, const 
     const float* ef = static_cast<const float*>(extra);
     float* pf = static_cast<float*>(partials);
     const size_t smem = (size_t)glm_fused_smem_bytes(k);
+    const dim3 grid(row_blocks, (c + TC - 1) / TC);
+    const long long m = (long long)(k + 3) * c;
     cudaError_t err;
     switch (family) {
         case BERNOULLI_LOGIT:
-            err = launch_family<BERNOULLI_LOGIT>(yf, xf, af, bf, ef, pf, n, k, c, row_blocks, smem, stream);
+            err = launch_two_pass(glm_fused_kernel<BERNOULLI_LOGIT>, grid, smem, stream, pf, out, m, yf, xf, af, bf, ef, n, k, c);
             break;
         case POISSON_LOG:
-            err = launch_family<POISSON_LOG>(yf, xf, af, bf, ef, pf, n, k, c, row_blocks, smem, stream);
+            err = launch_two_pass(glm_fused_kernel<POISSON_LOG>, grid, smem, stream, pf, out, m, yf, xf, af, bf, ef, n, k, c);
             break;
         case NORMAL_ID:
-            err = launch_family<NORMAL_ID>(yf, xf, af, bf, ef, pf, n, k, c, row_blocks, smem, stream);
+            err = launch_two_pass(glm_fused_kernel<NORMAL_ID>, grid, smem, stream, pf, out, m, yf, xf, af, bf, ef, n, k, c);
             break;
         case NEG_BINOMIAL_2_LOG:
-            err = launch_family<NEG_BINOMIAL_2_LOG>(yf, xf, af, bf, ef, pf, n, k, c, row_blocks, smem,
-                                                    stream);
+            err = launch_two_pass(glm_fused_kernel<NEG_BINOMIAL_2_LOG>, grid, smem, stream, pf, out, m, yf, xf, af, bf, ef,
+                                  n, k, c);
             break;
         default:
             return (int)cudaErrorInvalidValue;
     }
-    if (err != cudaSuccess) return (int)err;
-    const int m = (k + 3) * c;
-    glm_reduce_kernel<<<(m + 255) / 256, 256, 0, stream>>>(pf, static_cast<float*>(out), row_blocks, m);
-    return (int)cudaGetLastError();
+    return (int)err;
+}
+
+// Bytes of dynamic shared memory one block of the ordered kernel needs for d
+// columns and kcat categories.
+extern "C" long long glm_ordered_smem_bytes(int d, int kcat) {
+    return (long long)sizeof(float) *
+           (3LL * TM * TC + 2LL * d * TC + 2LL * kcat * TC + (long long)TM * d + TM);
+}
+
+// partials: (row_blocks, d + kcat, c); out: (d + kcat, c) with rows logp,
+// gbeta[0..d), gcuts[0..kcat-1).
+extern "C" int glm_ordered_launch(const void* y, const void* x, const void* beta, const void* cuts,
+                                  void* partials, void* out, int n, int d, int c, int kcat,
+                                  int row_blocks, void* stream_ptr) {
+    const dim3 grid(row_blocks, (c + TC - 1) / TC);
+    return (int)launch_two_pass(
+        glm_ordered_kernel, grid, (size_t)glm_ordered_smem_bytes(d, kcat), reinterpret_cast<cudaStream_t>(stream_ptr),
+        static_cast<float*>(partials), out, (long long)(d + kcat) * c, static_cast<const int*>(y),
+        static_cast<const float*>(x), static_cast<const float*>(beta), static_cast<const float*>(cuts), n, d, c, kcat);
+}
+
+// Chains one column tile of the categorical kernel holds.
+extern "C" int glm_categorical_chains_per_tile(int kcls) { return TC / kcls; }
+
+// Bytes of dynamic shared memory one block of the categorical kernel needs
+// for d columns of x and kcls classes.
+extern "C" long long glm_categorical_smem_bytes(int d, int kcls) {
+    return (long long)sizeof(float) *
+           ((long long)TM * TC + 2LL * d * TC + TC + (long long)TM * (TC / kcls) + (long long)TM * d + TM);
+}
+
+// partials: (row_blocks, c*(1 + kcls + d*kcls)); out: the same length, logp
+// (c), galpha (c, kcls), gbeta (c, d, kcls).
+extern "C" int glm_categorical_launch(const void* y, const void* x, const void* alpha, const void* beta,
+                                      void* partials, void* out, int n, int d, int c, int kcls,
+                                      int row_blocks, void* stream_ptr) {
+    if (kcls < 1 || kcls > TC) return (int)cudaErrorInvalidValue;
+    const int cpt = TC / kcls;
+    const dim3 grid(row_blocks, (c + cpt - 1) / cpt);
+    return (int)launch_two_pass(
+        glm_categorical_kernel, grid, (size_t)glm_categorical_smem_bytes(d, kcls),
+        reinterpret_cast<cudaStream_t>(stream_ptr), static_cast<float*>(partials), out,
+        (long long)c * (1 + kcls + (long long)d * kcls), static_cast<const int*>(y), static_cast<const float*>(x),
+        static_cast<const float*>(alpha), static_cast<const float*>(beta), n, d, c, kcls);
 }

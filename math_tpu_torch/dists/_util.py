@@ -18,7 +18,7 @@ import torch
 
 from math_tpu_torch.utils.batch import sum_event
 
-__all__ = ["fdtype", "bcast", "as_tensors", "finish", "safe", "ok_pos"]
+__all__ = ["fdtype", "bcast", "as_tensors", "finish", "safe", "ok_pos", "ok_ordered"]
 
 
 def _like(*args):
@@ -60,6 +60,8 @@ def _const_tensor(raw, np_dtype, shape, dt, device):
 
 def _as_constant(a, dt, device):
     arr = np.asarray(a)
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)  # torch refuses negative strides
     if arr.size > _CONST_CACHE_MAX_ELEMS or arr.dtype == object:
         return torch.as_tensor(arr, dtype=dt, device=device)
     return _const_tensor(arr.tobytes(), arr.dtype.str, arr.shape, dt, device)
@@ -95,3 +97,10 @@ def finish(lp, ok, batch_ndims=0):
 
 def ok_pos(x):
     return torch.isfinite(x) & (x > 0)
+
+
+def ok_ordered(x, axis=-1):
+    """Finite and strictly increasing along ``axis`` (ref: ``check_ordered.hpp``)."""
+    fin = torch.all(torch.isfinite(x), dim=axis)
+    inc = torch.all(torch.diff(x, dim=axis) > 0, dim=axis)
+    return fin & inc

@@ -8,20 +8,30 @@ parameter gradients in a hand-written CUDA kernel, are in
 ``math_tpu_torch/ops/glm_fused.py``.
 
 With ``batch_ndims=1`` the parameters carry a leading chain axis: ``alpha
-(C,)``, ``beta (C, K)``, ``sigma (C,)`` and the result is ``(C,)``.
-``neg_binomial_2_log_glm_lpmf`` waits for ``dists/discrete.py``.
+(C,)``, ``beta (C, K)``, ``sigma (C,)`` / ``phi (C,)``, ``cuts (C, K-1)``, and
+for the categorical GLM ``alpha (C, K)``, ``beta (C, D, K)``; the result is
+``(C,)``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from math_tpu_torch.special import LOG_SQRT_TWO_PI
 from math_tpu_torch.utils.propto import include_summand
 from math_tpu_torch.utils.batch import sum_event
-from math_tpu_torch.dists._util import _like
+from math_tpu_torch.dists._util import _like, as_tensors
+from math_tpu_torch.dists.discrete import _category_index, neg_binomial_2_log_lpmf, ordered_logistic_lpmf
 
-__all__ = ["bernoulli_logit_glm_lpmf", "poisson_log_glm_lpmf", "normal_id_glm_lpdf"]
+__all__ = [
+    "bernoulli_logit_glm_lpmf",
+    "poisson_log_glm_lpmf",
+    "neg_binomial_2_log_glm_lpmf",
+    "normal_id_glm_lpdf",
+    "ordered_logistic_glm_lpmf",
+    "categorical_logit_glm_lpmf",
+]
 
 
 def _eta(x, alpha, beta, batch_ndims):
@@ -63,6 +73,14 @@ def poisson_log_glm_lpmf(y, x, alpha, beta, *, propto=False, batch_ndims=0):
     return lp
 
 
+def neg_binomial_2_log_glm_lpmf(y, x, alpha, beta, phi, *, propto=False, batch_ndims=0):
+    """Ref: neg_binomial_2_log_glm_lpmf.hpp."""
+    eta, _, _ = _eta(x, alpha, beta, batch_ndims)
+    if batch_ndims and np.ndim(phi) == batch_ndims:
+        phi = phi[..., None]  # one phi per chain
+    return neg_binomial_2_log_lpmf(y, eta, phi, propto=propto, batch_ndims=batch_ndims)
+
+
 def normal_id_glm_lpdf(y, x, alpha, beta, sigma, *, propto=False, batch_ndims=0):
     """Ref: normal_id_glm_lpdf.hpp."""
     eta, dt, device = _eta(x, alpha, beta, batch_ndims)
@@ -80,3 +98,34 @@ def normal_id_glm_lpdf(y, x, alpha, beta, sigma, *, propto=False, batch_ndims=0)
     if include_summand(propto):
         lp = lp - n * LOG_SQRT_TWO_PI
     return lp
+
+
+def ordered_logistic_glm_lpmf(y, x, beta, cuts, *, propto=False, batch_ndims=0):
+    """Ref: ordered_logistic_glm_lpmf.hpp (eta = x beta, no intercept)."""
+    x, beta, cuts = as_tensors(x, beta, cuts)
+    return ordered_logistic_lpmf(y, beta @ x.mT, cuts, propto=propto, batch_ndims=batch_ndims)
+
+
+def categorical_logit_glm_lpmf(y, x, alpha, beta, *, propto=False, batch_ndims=0):
+    """Ref: categorical_logit_glm_lpmf.hpp (beta is D x K, alpha K).
+
+    Every summand depends on (x, alpha, beta), so propto=True with
+    all-constant operands prunes the whole density (the reference's
+    ``include_summand<propto, T_x, T_alpha, T_beta>`` gate); invalid y
+    follows the -inf / nan-free-gradient convention of the other families.
+    """
+    xt, a, b = as_tensors(x, alpha, beta)
+    dt, device = xt.dtype, xt.device
+    if batch_ndims and a.ndim == batch_ndims + 1:
+        a = a[..., None, :]  # one intercept vector per chain
+    eta = xt @ b + a  # (batch..., N, K)
+    yi = _category_index(y, device)
+    k = eta.shape[-1]
+    ok = (yi >= 0) & (yi < k)
+    lp = torch.zeros(eta.shape[:batch_ndims], dtype=dt, device=device)
+    if include_summand(propto, x, alpha, beta):
+        logsm = torch.log_softmax(eta, dim=-1)
+        idx = torch.clamp(yi, 0, k - 1).expand(logsm.shape[:-1])[..., None]
+        picked = torch.gather(logsm, -1, idx)[..., 0]
+        lp = lp + sum_event(torch.where(ok, picked, 0.0), batch_ndims)
+    return torch.where(torch.all(ok), lp, torch.full_like(lp, -float("inf")))

@@ -1,9 +1,18 @@
 """Fused GLM log-prob + parameter gradients for a batch of chains.
 
-Counterpart: ``math_tpu/ops/pallas_glm.py`` (its ``_glm_kernel``, the four
-family cores, the AD wiring and the four ``*_glm_lp[dm]f_chains``
-dispatchers).  The kernel is ``math_tpu_torch/csrc/glm_fused.cu``: one pass
-over ``x`` gives, per chain,
+Counterpart: ``math_tpu/ops/pallas_glm.py`` (its three kernels, the AD wiring
+and the six ``*_chains`` dispatchers).  Three hand-written CUDA kernels in one
+source, ``csrc/glm_fused.cu``, which share their tiles, products and second
+pass:
+
+- ``glm_fused_kernel`` (``_glm_kernel``): four families with one linear
+  predictor per chain;
+- ``glm_ordered_kernel`` (``_ordered_kernel``): the ordered-logistic GLM,
+  ``logp``, ``gbeta``, ``gcuts``;
+- ``glm_categorical_kernel`` (``_categorical_kernel``): the categorical-logit
+  GLM, ``logp``, ``galpha``, ``gbeta``.
+
+For the four families one pass over ``x`` gives, per chain,
 
     logp = sum lp(eta, y, extra),  ga = sum theta',  gb = x^T theta',
     ge = sum dlp/dextra            with eta = x @ beta + alpha,
@@ -13,12 +22,18 @@ Only the eta-dependent part of the density lives in the kernel; terms in
 ``(y, extra)`` alone are added outside in plain PyTorch.  All functions here
 compute the ``propto=True`` form, as the JAX dispatchers do.
 
-Rules: on a CUDA tensor ``glm_fused_parts`` launches the kernel or raises; it
-takes the plain version ``glm_fused_parts_reference`` only for tensors that lie
-on the CPU.  There are no dispatch thresholds: those of the JAX package were
-measured on another chip and are not carried over.  ``LAUNCHES`` counts kernel
-launches per family and ``PLAIN_CALLS`` calls of the plain version, so a run
-can show which one it went through.
+Rules: on a CUDA tensor each ``*_parts`` wrapper launches its kernel or
+raises; it takes its plain version (``*_parts_reference``) only for tensors
+that lie on the CPU.  There are no dispatch thresholds: those of the JAX
+package were measured on another chip and are not carried over.  ``LAUNCHES``
+counts kernel launches per family and ``PLAIN_CALLS`` calls of the plain
+version, so a run can show which one it went through.
+
+Differentiation (ref: pallas_glm.py:219-237): at first order each
+``autograd.Function`` reads the gradients off the partials its forward pass
+saved and launches nothing.  Under ``create_graph=True`` its backward takes the
+differentiable plain version instead, as the JAX package's second level
+differentiates its XLA formulation, so Hessians and higher orders work.
 """
 
 from __future__ import annotations
@@ -26,9 +41,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from math_tpu_torch.ops import _build
+from math_tpu_torch.special import log1m_exp
 
 FAMILIES = ("bernoulli_logit", "poisson_log", "normal_id", "neg_binomial_2_log")
 HAS_EXTRA = {
@@ -38,15 +53,18 @@ HAS_EXTRA = {
     "neg_binomial_2_log": True,
 }
 _FAMILY_CODE = {f: i for i, f in enumerate(FAMILIES)}
+ORDERED = "ordered_logistic"
+CATEGORICAL = "categorical_logit"
+KERNEL_FAMILIES = FAMILIES + (ORDERED, CATEGORICAL)
 
-LAUNCHES = {f: 0 for f in FAMILIES}
-PLAIN_CALLS = {f: 0 for f in FAMILIES}
+LAUNCHES = {f: 0 for f in KERNEL_FAMILIES}
+PLAIN_CALLS = {f: 0 for f in KERNEL_FAMILIES}
 
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one block may use on sm_90
 
 
 def reset_counts():
-    for f in FAMILIES:
+    for f in KERNEL_FAMILIES:
         LAUNCHES[f] = 0
         PLAIN_CALLS[f] = 0
 
@@ -103,6 +121,7 @@ _lib = None
 
 
 def _library():
+    """The three GLM kernels of ``csrc/glm_fused.cu``, built at first use."""
     global _lib
     if _lib is None:
         lib = _build.load_library("glm_fused")
@@ -112,23 +131,43 @@ def _library():
         )
         lib.glm_fused_smem_bytes.restype = ctypes.c_longlong
         lib.glm_fused_smem_bytes.argtypes = [ctypes.c_int]
+        for name in ("glm_ordered_launch", "glm_categorical_launch"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        for name in ("glm_ordered_smem_bytes", "glm_categorical_smem_bytes"):
+            getattr(lib, name).restype = ctypes.c_longlong
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.glm_categorical_chains_per_tile.restype = ctypes.c_int
+        lib.glm_categorical_chains_per_tile.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, who="glm_fused_parts"):
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"glm_fused_parts: {name} must be a torch.Tensor, got {type(t).__name__}")
+        raise TypeError(f"{who}: {name} must be a torch.Tensor, got {type(t).__name__}")
     if t.device != device:
-        raise ValueError(f"glm_fused_parts: {name} is on {t.device}, x is on {device}")
+        raise ValueError(f"{who}: {name} is on {t.device}, x is on {device}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"glm_fused_parts: {name} has shape {tuple(t.shape)}, expected {shape}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {shape}")
 
 
-def row_blocks_for(n, c, device):
+def _check_cuda_layout(who, y, floats):
+    """What a kernel takes: ``y`` int32 and the floating operands float32, all contiguous."""
+    if y.dtype != torch.int32:
+        raise TypeError(f"{who}: y is {y.dtype}; the CUDA kernel takes int32 categories")
+    for name, t in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{who}: {name} is {t.dtype}; the CUDA kernel takes float32")
+    for name, t in [("y", y)] + floats:
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def row_blocks_for(n, c, device, chains_per_tile=64):
     """Blocks along the rows: about two blocks per SM over all chain tiles."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chain_tiles = (c + 63) // 64
+    chain_tiles = (c + chains_per_tile - 1) // chains_per_tile
     n_tiles = (n + 63) // 64
     return max(1, min(n_tiles, (2 * sms + chain_tiles - 1) // chain_tiles))
 
@@ -210,26 +249,25 @@ class GlmFused(torch.autograd.Function):
     saved (the transpose of the linear JVP rule, pallas_glm.py:343-358).  The
     data-side cotangents for ``x`` and ``y`` are computed in plain PyTorch,
     and only when asked for.  There is no backward kernel, as in the JAX
-    package.  Differentiating the backward again is not supported yet and
-    raises (it never returns silent zeros).
+    package.  Under ``create_graph=True`` the partials come from the
+    differentiable plain version (pallas_glm.py:305-311), so the result can be
+    differentiated again.  The operands must be contiguous (the dispatchers
+    lay them out before the call, where autograd sees the copy).
     """
 
     @staticmethod
     def forward(ctx, family, y, x, alpha, beta, extra):
-        alpha = alpha.contiguous()
-        beta = beta.contiguous()
-        if extra is not None:
-            extra = extra.contiguous()
         logp, ga, gb, ge = glm_fused_parts(family, y, x, alpha, beta, extra)
         ctx.family = family
         ctx.save_for_backward(y, x, alpha, beta, extra, ga, gb, ge)
         return logp
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         y, x, alpha, beta, extra, ga, gb, ge = ctx.saved_tensors
         family = ctx.family
+        if torch.is_grad_enabled():  # create_graph=True: the result is differentiated again
+            _, ga, gb, ge = glm_fused_parts_reference(family, y, x, alpha, beta, extra)
         need_y, need_x = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
         gy = gx = None
         if need_y or need_x:
@@ -246,6 +284,12 @@ class GlmFused(torch.autograd.Function):
         return None, gy, gx, g_alpha, g_beta, g_extra
 
 
+def _fused(family, y, x, alpha, beta, extra=None):
+    return GlmFused.apply(
+        family, y, x, alpha.contiguous(), beta.contiguous(), None if extra is None else extra.contiguous()
+    )
+
+
 # ---------------------------------------------------------------------------
 # Dispatchers (ref: pallas_glm.py:831-865, with the ``*_glm_fused`` functions
 # of :394-417 folded in): alpha (C,), beta (K, C) -> logp (C,), propto=True.
@@ -256,18 +300,18 @@ class GlmFused(torch.autograd.Function):
 
 def bernoulli_logit_glm_lpmf_chains(y, x, alpha, beta):
     """y (N,), x (N, K), alpha (C,), beta (K, C) -> logp (C,)."""
-    return GlmFused.apply("bernoulli_logit", y, x, alpha, beta, None)
+    return _fused("bernoulli_logit", y, x, alpha, beta)
 
 
 def poisson_log_glm_lpmf_chains(y, x, alpha, beta):
-    return GlmFused.apply("poisson_log", y, x, alpha, beta, None)
+    return _fused("poisson_log", y, x, alpha, beta)
 
 
 def normal_id_glm_lpdf_chains(y, x, alpha, beta, sigma):
     """Core kernel plus the -N log sigma term (plain PyTorch; its
     sigma-gradient comes from autograd).  ref: pallas_glm.py:400-406."""
     n = y.shape[0]
-    return GlmFused.apply("normal_id", y, x, alpha, beta, sigma) - n * torch.log(sigma)
+    return _fused("normal_id", y, x, alpha, beta, sigma) - n * torch.log(sigma)
 
 
 def neg_binomial_2_log_glm_lpmf_chains(y, x, alpha, beta, phi):
@@ -275,6 +319,249 @@ def neg_binomial_2_log_glm_lpmf_chains(y, x, alpha, beta, phi):
     lgamma(phi) + phi log phi (plain PyTorch over the (N, C) y-phi grid; no x
     read).  ref: pallas_glm.py:409-417."""
     n = y.shape[0]
-    core = GlmFused.apply("neg_binomial_2_log", y, x, alpha, beta, phi)
+    core = _fused("neg_binomial_2_log", y, x, alpha, beta, phi)
     data = torch.lgamma(y[:, None] + phi[None, :]).sum(0)
     return core + data - n * torch.lgamma(phi) + n * phi * torch.log(phi)
+
+
+# ---------------------------------------------------------------------------
+# ordered_logistic_glm (ref: pallas_glm.py:420-637 and the dispatcher :868-882)
+# ---------------------------------------------------------------------------
+
+ORD_BIG = 1e4  # stands in for the -/+ inf boundary cuts c_0, c_K (ref: pallas_glm.py:428)
+
+
+def _ordered_rows(y, x, beta, cuts):
+    """Per (row, chain): ``(lp, w1, w2)`` and the 1-based categories as int64
+    (ref: pallas_glm.py:469-481).  The cut pair is read by index from the cut
+    matrix extended with -/+ORD_BIG; ``y`` is clamped into 1..K as the kernel does."""
+    big = torch.full((1, cuts.shape[1]), ORD_BIG, dtype=cuts.dtype, device=cuts.device)
+    ext = torch.cat([-big, cuts, big], dim=0)  # (K+1, C)
+    yl = torch.clamp(y.long(), 1, cuts.shape[0] + 1)
+    eta = x @ beta
+    u2 = ext[yl] - eta
+    u1 = ext[yl - 1] - eta
+    sp2, sp1 = _softplus(u2), _softplus(u1)
+    # log1m_exp as the kernel computes it (ref: pallas_glm.py:449-456): the
+    # argument capped at -1e-20 and floored at -80
+    lp = u2 - sp2 - sp1 + log1m_exp(torch.clamp(u1 - u2, -80.0, -1e-20))
+    w2 = torch.exp(u2 - 2.0 * sp2 - lp)
+    w1 = torch.exp(u1 - 2.0 * sp1 - lp)
+    return lp, w1, w2, yl
+
+
+def ordered_logistic_glm_parts_reference(y, x, beta, cuts):
+    """Plain PyTorch version of the ordered kernel (ref: ``_ordered_xla_parts``,
+    pallas_glm.py:556-576): ``(logp (C,), gbeta (D, C), gcuts (K-1, C))`` in
+    the dtype of ``x``, on its device.  Differentiable in ``x``, ``beta``, ``cuts``."""
+    PLAIN_CALLS[ORDERED] += 1
+    lp, w1, w2, yl = _ordered_rows(y, x, beta, cuts)
+    rows = torch.zeros((cuts.shape[0] + 2, cuts.shape[1]), dtype=w1.dtype, device=w1.device)
+    gc = rows.index_add(0, yl, w2) - rows.index_add(0, yl - 1, w1)
+    return lp.sum(0), x.mT @ (w1 - w2), gc[1:-1]
+
+
+def _ordered_eta_partials(y, x, beta, cuts):
+    """theta' = d lp / d eta (N, C) for the data-side cotangent (ref: pallas_glm.py:579-590)."""
+    _, w1, w2, _ = _ordered_rows(y, x, beta, cuts)
+    return w1 - w2
+
+
+def _check_categories(who, y, n, device):
+    _check("y", y, (n,), device, who)
+    if y.dtype.is_floating_point or y.dtype.is_complex or y.dtype == torch.bool:
+        raise TypeError(f"{who}: y must hold integer categories 1..K, got {y.dtype}")
+
+
+def ordered_logistic_glm_parts(y, x, beta, cuts):
+    """``(logp (C,), gbeta (D, C), gcuts (K-1, C))`` for ``y (N,)`` integer
+    categories 1..K, ``x (N, D)``, ``beta (D, C)``, ``cuts (K-1, C)``;
+    ``propto=True`` form, valid data assumed (as the JAX dispatcher does).
+
+    CUDA tensors go to the hand-written kernel (``y`` int32, the rest float32,
+    all contiguous, else this raises); CPU tensors go to
+    ``ordered_logistic_glm_parts_reference``.
+    """
+    who = "ordered_logistic_glm_parts"
+    if not isinstance(x, torch.Tensor) or x.ndim != 2:
+        raise ValueError(f"{who}: x must be a 2-D torch.Tensor (N, D)")
+    n, d = x.shape
+    if not isinstance(beta, torch.Tensor) or beta.ndim != 2 or not isinstance(cuts, torch.Tensor) or cuts.ndim != 2:
+        raise ValueError(f"{who}: beta must be 2-D (D, C) and cuts 2-D (K-1, C)")
+    c, kc = beta.shape[1], cuts.shape[0]
+    _check_categories(who, y, n, x.device)
+    _check("beta", beta, (d, c), x.device, who)
+    _check("cuts", cuts, (kc, c), x.device, who)
+    if kc < 1:
+        raise ValueError(f"{who}: need at least one cut (K >= 2)")
+
+    if x.device.type == "cpu":
+        return ordered_logistic_glm_parts_reference(y, x, beta, cuts)
+    if x.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {x.device}")
+    _check_cuda_layout(who, y, [("x", x), ("beta", beta), ("cuts", cuts)])
+    if n < 1 or d < 1 or c < 1:
+        raise ValueError(f"{who}: need N, D, C >= 1; got {n}, {d}, {c}")
+
+    lib = _library()
+    if lib.glm_ordered_smem_bytes(d, kc + 1) > MAX_SMEM_BYTES:
+        raise ValueError(f"{who}: D={d} columns and K={kc + 1} categories need more shared memory than a block has")
+    rb = row_blocks_for(n, c, x.device)
+    rows = d + kc + 1
+    with torch.cuda.device(x.device):
+        partials = torch.empty((rb, rows, c), dtype=torch.float32, device=x.device)
+        out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
+        err = lib.glm_ordered_launch(
+            y.data_ptr(), x.data_ptr(), beta.data_ptr(), cuts.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            n, d, c, kc + 1, rb, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"glm_ordered kernel launch failed: CUDA error {err}")
+    LAUNCHES[ORDERED] += 1
+    return out[0], out[1 : 1 + d], out[1 + d :]
+
+
+class OrderedGlmFused(torch.autograd.Function):
+    """``logp (C,)`` of the ordered-logistic GLM; first-order gradients for
+    ``beta`` and ``cuts`` are read off the saved partials (ref:
+    pallas_glm.py:621-634), the ``x`` cotangent is computed in plain PyTorch
+    only when asked for (``_ordered_eta_partials``).  Under
+    ``create_graph=True`` the partials come from the differentiable plain
+    version (pallas_glm.py:598-607)."""
+
+    @staticmethod
+    def forward(ctx, y, x, beta, cuts):
+        logp, gb, gc = ordered_logistic_glm_parts(y, x, beta, cuts)
+        ctx.save_for_backward(y, x, beta, cuts, gb, gc)
+        return logp
+
+    @staticmethod
+    def backward(ctx, g):
+        y, x, beta, cuts, gb, gc = ctx.saved_tensors
+        if torch.is_grad_enabled():  # create_graph=True: the result is differentiated again
+            _, gb, gc = ordered_logistic_glm_parts_reference(y, x, beta, cuts)
+        gx = None
+        if ctx.needs_input_grad[1]:
+            gx = (_ordered_eta_partials(y, x, beta, cuts) * g[None, :]) @ beta.mT
+        g_beta = g[None, :] * gb if ctx.needs_input_grad[2] else None
+        g_cuts = g[None, :] * gc if ctx.needs_input_grad[3] else None
+        return None, gx, g_beta, g_cuts
+
+
+def ordered_logistic_glm_lpmf_chains(y, x, beta, cuts):
+    """y (N,) int 1..K, x (N, D), beta (D, C), cuts (K-1, C) -> (C,).
+    Assumes valid data (like the other chains dispatchers); mirrors
+    dists.ordered_logistic_glm_lpmf(..., propto=True) per chain, with the
+    kernel's -/+1e4 boundary cuts.  ref: pallas_glm.py:868-882."""
+    return OrderedGlmFused.apply(y, x, beta.contiguous(), cuts.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# categorical_logit_glm (ref: pallas_glm.py:640-808 and the dispatcher :885-905)
+# ---------------------------------------------------------------------------
+
+MAX_CLASSES = 64  # one chain's classes share a 64-column tile of the kernel
+
+
+def _categorical_thetap(y, x, alpha, beta):
+    """``(eta (C, N, K), onehot (N, K), theta' (C, N, K))``; ``y`` is clamped
+    into 1..K as the kernel does."""
+    k = beta.shape[-1]
+    eta = torch.einsum("nd,cdk->cnk", x, beta) + alpha[:, None, :]
+    yl = torch.clamp(y.long() - 1, 0, k - 1)
+    onehot = torch.nn.functional.one_hot(yl, k).to(eta.dtype)
+    return eta, yl, onehot[None] - torch.softmax(eta, dim=-1)
+
+
+def categorical_logit_glm_parts_reference(y, x, alpha, beta):
+    """Plain PyTorch version of the categorical kernel (ref:
+    ``_categorical_xla_parts``, pallas_glm.py:748-761): ``(logp (C,), galpha
+    (C, K), gbeta (C, D, K))`` in the dtype of ``x``, on its device.
+    Differentiable in ``x``, ``alpha``, ``beta``."""
+    PLAIN_CALLS[CATEGORICAL] += 1
+    eta, yl, thetap = _categorical_thetap(y, x, alpha, beta)
+    logsm = torch.log_softmax(eta, dim=-1)
+    picked = torch.gather(logsm, -1, yl.expand(logsm.shape[:-1])[..., None])[..., 0]
+    return picked.sum(-1), thetap.sum(1), torch.einsum("nd,cnk->cdk", x, thetap)
+
+
+def categorical_logit_glm_parts(y, x, alpha, beta):
+    """``(logp (C,), galpha (C, K), gbeta (C, D, K))`` for ``y (N,)`` integer
+    classes 1..K, ``x (N, D)``, ``alpha (C, K)``, ``beta (C, D, K)``;
+    ``propto=True`` form, valid data assumed.
+
+    CUDA tensors go to the hand-written kernel (``y`` int32, the rest float32,
+    all contiguous, K <= 64, else this raises); CPU tensors go to
+    ``categorical_logit_glm_parts_reference``.
+    """
+    who = "categorical_logit_glm_parts"
+    if not isinstance(x, torch.Tensor) or x.ndim != 2:
+        raise ValueError(f"{who}: x must be a 2-D torch.Tensor (N, D)")
+    n, d = x.shape
+    if not isinstance(beta, torch.Tensor) or beta.ndim != 3:
+        raise ValueError(f"{who}: beta must be 3-D (C, D, K)")
+    c, _, k = beta.shape
+    _check_categories(who, y, n, x.device)
+    _check("alpha", alpha, (c, k), x.device, who)
+    _check("beta", beta, (c, d, k), x.device, who)
+
+    if x.device.type == "cpu":
+        return categorical_logit_glm_parts_reference(y, x, alpha, beta)
+    if x.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {x.device}")
+    _check_cuda_layout(who, y, [("x", x), ("alpha", alpha), ("beta", beta)])
+    if n < 1 or d < 1 or c < 1 or k < 1:
+        raise ValueError(f"{who}: need N, D, C, K >= 1; got {n}, {d}, {c}, {k}")
+    if k > MAX_CLASSES:
+        raise ValueError(f"{who}: K={k} classes; the kernel takes at most {MAX_CLASSES} (one chain's classes per column tile)")
+
+    lib = _library()
+    if lib.glm_categorical_smem_bytes(d, k) > MAX_SMEM_BYTES:
+        raise ValueError(f"{who}: D={d} columns need more shared memory than a block has")
+    rb = row_blocks_for(n, c, x.device, chains_per_tile=lib.glm_categorical_chains_per_tile(k))
+    m = c * (1 + k + d * k)
+    with torch.cuda.device(x.device):
+        partials = torch.empty((rb, m), dtype=torch.float32, device=x.device)
+        out = torch.empty((m,), dtype=torch.float32, device=x.device)
+        err = lib.glm_categorical_launch(
+            y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            n, d, c, k, rb, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"glm_categorical kernel launch failed: CUDA error {err}")
+    LAUNCHES[CATEGORICAL] += 1
+    return out[:c], out[c : c + c * k].view(c, k), out[c + c * k :].view(c, d, k)
+
+
+class CategoricalGlmFused(torch.autograd.Function):
+    """``logp (C,)`` of the categorical-logit GLM; first-order gradients for
+    ``alpha`` and ``beta`` are read off the saved partials (ref:
+    pallas_glm.py:792-805), the ``x`` cotangent is computed in plain PyTorch
+    only when asked for.  Under ``create_graph=True`` the partials come from
+    the differentiable plain version (pallas_glm.py:769-778)."""
+
+    @staticmethod
+    def forward(ctx, y, x, alpha, beta):
+        logp, ga, gb = categorical_logit_glm_parts(y, x, alpha, beta)
+        ctx.save_for_backward(y, x, alpha, beta, ga, gb)
+        return logp
+
+    @staticmethod
+    def backward(ctx, g):
+        y, x, alpha, beta, ga, gb = ctx.saved_tensors
+        if torch.is_grad_enabled():  # create_graph=True: the result is differentiated again
+            _, ga, gb = categorical_logit_glm_parts_reference(y, x, alpha, beta)
+        gx = None
+        if ctx.needs_input_grad[1]:
+            _, _, thetap = _categorical_thetap(y, x, alpha, beta)
+            gx = torch.einsum("cnk,cdk->nd", thetap * g[:, None, None], beta)
+        g_alpha = g[:, None] * ga if ctx.needs_input_grad[2] else None
+        g_beta = g[:, None, None] * gb if ctx.needs_input_grad[3] else None
+        return None, gx, g_alpha, g_beta
+
+
+def categorical_logit_glm_lpmf_chains(y, x, alpha, beta):
+    """y (N,) int 1..K, x (N, D), alpha (C, K), beta (C, D, K) -> (C,).
+    Mirrors dists.categorical_logit_glm_lpmf(..., propto=True) per chain.
+    ref: pallas_glm.py:885-905."""
+    return CategoricalGlmFused.apply(y, x, alpha.contiguous(), beta.contiguous())

@@ -1,11 +1,7 @@
 """Scalar special functions (counterpart: ``math_tpu/special``).
 
-Only the constants the ported densities use so far; the function library
-follows with the densities that need it.
+Only the constants and functions the ported densities use so far; the
+function library follows with the densities that need it.
 """
 
-import math
-
-LOG_TWO = math.log(2.0)
-LOG_TWO_PI = math.log(2.0 * math.pi)
-LOG_SQRT_TWO_PI = 0.5 * math.log(2.0 * math.pi)
+from math_tpu_torch.special.basic import LOG_SQRT_TWO_PI, LOG_TWO, LOG_TWO_PI, log1m_exp  # noqa: F401

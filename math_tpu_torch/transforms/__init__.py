@@ -7,4 +7,12 @@ from math_tpu_torch.transforms.scalar import (  # noqa: F401
     lb_constrain_lp,
     lb_free,
 )
-from math_tpu_torch.transforms.api import Identity, LowerBound, Transform  # noqa: F401
+from math_tpu_torch.transforms.vector import (  # noqa: F401
+    ordered_constrain,
+    ordered_constrain_lp,
+    ordered_free,
+    positive_ordered_constrain,
+    positive_ordered_constrain_lp,
+    positive_ordered_free,
+)
+from math_tpu_torch.transforms.api import Identity, LowerBound, Ordered, PositiveOrdered, Transform  # noqa: F401

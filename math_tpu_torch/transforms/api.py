@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from math_tpu_torch.transforms import scalar as _s
+from math_tpu_torch.transforms import vector as _v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,3 +54,27 @@ class LowerBound(Transform):
 
     def free(self, y):
         return _s.lb_free(y, self.lb)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ordered(Transform):
+    def constrain(self, x):
+        return _v.ordered_constrain(x)
+
+    def constrain_lp(self, x, *, batch_ndims=0):
+        return _v.ordered_constrain_lp(x, batch_ndims=batch_ndims)
+
+    def free(self, y):
+        return _v.ordered_free(y)
+
+
+@dataclasses.dataclass(frozen=True)
+class PositiveOrdered(Transform):
+    def constrain(self, x):
+        return _v.positive_ordered_constrain(x)
+
+    def constrain_lp(self, x, *, batch_ndims=0):
+        return _v.positive_ordered_constrain_lp(x, batch_ndims=batch_ndims)
+
+    def free(self, y):
+        return _v.positive_ordered_free(y)

@@ -146,14 +146,32 @@ def test_chains_dispatchers_vs_vmapped_dists(family):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_double_backward_raises(family):
-    """Second-order differentiation through the op is not supported yet: it
-    must raise, never return silent zeros."""
+    """The double backward MATCHES the plain version, and only forward-mode AD
+    raises.  (The name dates from when the op was first-order only and its
+    double backward raised; it is kept so that the test's history stays one.)
+    Under ``create_graph=True`` the op differentiates the plain version, so the
+    second derivative equals autograd's through ``glm_fused_parts_reference``
+    (never silent zeros); forward mode has no rule here yet and raises."""
     extra = EXTRA[family]
     targs = [tt(A, grad=True), tt(B, grad=True)] + ([] if extra is None else [tt(extra, grad=True)])
     val = T_CHAINS[family](tt(Y[family]), tt(X), *targs)
     (gb,) = torch.autograd.grad(val.sum(), targs[1], create_graph=True)
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(gb.sum(), targs[1])
+    got = torch.autograd.grad(gb.sum(), targs)
+    ref = gf.glm_fused_parts_reference(family, tt(Y[family]), tt(X), *targs[:2], targs[2] if extra is not None else None)[0]
+    if family == "normal_id":
+        ref = ref - N * torch.log(targs[2])
+    elif family == "neg_binomial_2_log":
+        phi = targs[2]
+        ref = ref + torch.lgamma(tt(Y[family])[:, None] + phi[None, :]).sum(0) - N * torch.lgamma(phi) + N * phi * torch.log(phi)
+    (gb_ref,) = torch.autograd.grad(ref.sum(), targs[1], create_graph=True)
+    want = torch.autograd.grad(gb_ref.sum(), targs)
+    assert float(got[1].abs().max()) > 0.0
+    for g, w in zip(got, want):
+        close(g, w, rtol=1e-5, atol=1e-5)
+    with torch.autograd.forward_ad.dual_level():
+        dual = torch.autograd.forward_ad.make_dual(tt(B), torch.ones(B.shape))
+        with pytest.raises(RuntimeError):
+            T_CHAINS[family](tt(Y[family]), tt(X), tt(A), dual, *([] if extra is None else [tt(extra)]))
 
 
 def test_wrapper_rejects_bad_operands():

@@ -85,6 +85,7 @@ def test_port_has_the_slice_modules():
         "math_tpu_torch/models/glm_logistic.py", "math_tpu_torch/models/eight_schools.py",
         "math_tpu_torch/ops/chol_blocked.py", "math_tpu_torch/ops/cholesky.py", "math_tpu_torch/ops/gp.py",
         "math_tpu_torch/dists/multivariate.py", "math_tpu_torch/models/gp_regression.py",
+        "math_tpu_torch/transforms/vector.py", "math_tpu_torch/special/basic.py", "math_tpu_torch/dists/discrete.py",
     ):
         assert rel in files, rel
     for name in KERNEL_SOURCES:
@@ -186,6 +187,25 @@ def test_kernel_loader_raises_without_nvcc(tmp_path):
         update_config(kernel_build_dir=old)
     assert not os.path.exists(tmp_path / "build")
     assert glm_fused._lib is None and chol_blocked._lib is None
+
+
+GLM_ENTRY_POINTS = (
+    "glm_fused_launch", "glm_fused_smem_bytes", "glm_ordered_launch", "glm_ordered_smem_bytes",
+    "glm_categorical_launch", "glm_categorical_smem_bytes", "glm_categorical_chains_per_tile",
+)
+
+
+@pytest.mark.parametrize("entry", GLM_ENTRY_POINTS)
+def test_glm_entry_point_is_declared_and_bound(entry):
+    """Each C entry point the GLM loader binds is declared ``extern "C"`` in
+    the one GLM source, and the wrappers name it: the three kernels share one
+    build and one loader."""
+    with open(os.path.join(ROOT, "math_tpu_torch/csrc/glm_fused.cu"), encoding="utf-8") as f:
+        cu = f.read()
+    with open(os.path.join(PKG, "ops", "glm_fused.py"), encoding="utf-8") as f:
+        py = f.read()
+    assert f' {entry}(' in "".join(line for line in cu.splitlines(True) if line.startswith('extern "C"')), entry
+    assert entry in py, entry
 
 
 def test_kernel_wrapper_computes_only_on_cpu_or_cuda():
