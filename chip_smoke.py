@@ -10,7 +10,9 @@ Phases, each printing one JSON line (any failure raises: the exit code is then
 not 0 and no result line is printed):
 
 1. ``device``   the GPU's name and power limit, torch/CUDA versions, TF32 off.
-2. ``build``    compiles ``math_tpu_torch/csrc/*.cu`` from source with nvcc.
+2. ``build``    compiles ``math_tpu_torch/csrc/*.cu`` from source with nvcc (one
+   process per source, started together) and prints ``-Xptxas -v``'s
+   registers, stack and spills of each kernel.
 3. ``kernels``  every family of the fused GLM kernel against its plain PyTorch
    version (float64, on the GPU) at the main-path shape N=100,000, K=50, C=256
    and at the ragged shape N=1537, K=7, C=5; the diagonal-block Cholesky kernel
@@ -49,8 +51,13 @@ not 0 and no result line is printed):
 
 The ``kernels`` phase also holds the ordered and the categorical kernel
 against their plain versions (float64) at the main-path shape and at ragged
-shapes (N=1537, D=7, C=5, K=3 and 5; for the categorical kernel also C=13,
-K=5, which needs two column tiles).
+shapes (N=1537, D=7, C=5, K=3 and 5; for the categorical kernel also C=13
+with K=5, C=13 with K=7, which needs two column tiles and leaves columns of
+the tile idle, and C=5 with K=64, one chain per tile).  The categorical
+kernel's bound is counted for its route (three TF32 tensor-core products),
+with the float32-FMA bound beside it, and ``products_library_ms`` times its
+two products alone as float32 cuBLAS calls.  ``kernels_chol`` prints the block
+kernel's ``clock64`` stamps: how its time splits between factor and inverse.
 
 With ``--profile`` further phases trace a few sampling transitions of the
 GLM, ordinal and multinomial paths and a few gradient calls of the GP path
@@ -69,6 +76,7 @@ The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -87,8 +95,9 @@ from math_tpu_torch.ops import gp as gp_ops
 from math_tpu_torch.ops.cholesky import spd_solve_logdiag_reference
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
-# tensor cores (the arithmetic the kernel uses) and HBM bandwidth.
+# tensor cores, TF32 on the tensor cores (dense), and HBM bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 N_MAIN, K_MAIN, C_MAIN = 100_000, 50, 256
@@ -109,7 +118,9 @@ REPLACES = "math_tpu/ops/pallas_glm.py:112"
 K_CAT = 5
 CUTS_TRUE = (-2.5, -0.8, 0.8, 2.5)
 RAGGED_ORDERED = [(N_RAGGED, K_RAGGED, C_RAGGED, 3), (N_RAGGED, K_RAGGED, C_RAGGED, 5)]  # (n, d, c, k)
-RAGGED_CATEGORICAL = RAGGED_ORDERED + [(N_RAGGED, K_RAGGED, 13, 5)]  # 13 x 5 = 65 columns: two column tiles
+# C=13, K=5: 65 of a tile's 80 columns; C=13, K=7: two column tiles of 11
+# chains, 77 of 80 columns; C=5, K=64: one chain per tile
+RAGGED_CATEGORICAL = RAGGED_ORDERED + [(N_RAGGED, K_RAGGED, 13, 5), (N_RAGGED, K_RAGGED, 13, 7), (N_RAGGED, K_RAGGED, C_RAGGED, 64)]
 
 
 def ordered_core_ops(k):
@@ -164,16 +175,40 @@ def phase_device():
     return smi
 
 
+def ptxas_report(log):
+    """``[kernel, registers, stack bytes, spill store bytes, spill load bytes]``
+    for each kernel of one ``nvcc -Xptxas -v`` log."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+            args = re.findall(r"Li(\d+)E", k.group(2) or "") if k else []
+            entry = [(k.group(1) + (f"<{','.join(args)}>" if args else "")) if k else m.group(1)]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry is not None:
+            entry += [int(m.group(1)), int(m.group(2)), int(m.group(3))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append([entry[0], int(m.group(1)), *entry[1:]])
+            entry = None
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
-    names = ["glm_fused", "chol_inv_block"]
+    names = ["glm_fused", "glm_categorical", "chol_inv_block"]
     started = {name: _build.start_build(name) for name in names}  # one nvcc per source, together
     for name in names:
         _build.finish_build(name, started[name])
     glm_fused._library()
+    glm_fused._categorical_library()
     chol_blocked._library()
     emit("build", sources=[f"math_tpu_torch/csrc/{n}.cu" for n in names],
-         seconds=time.perf_counter() - t0, nvcc_seconds=dict(_build.BUILD_SECONDS))
+         seconds=time.perf_counter() - t0, nvcc_seconds=dict(_build.BUILD_SECONDS),
+         ptxas={n: ptxas_report(_build.BUILD_LOG.get(n, "")) for n in names})
 
 
 def make_inputs(family, n, k, c, seed, scale, x=None):
@@ -537,7 +572,7 @@ def phase_kernels_ordered_categorical(x_main):
         ("glm_ordered_logistic", "math_tpu_torch/csrc/glm_fused.cu", "math_tpu/ops/pallas_glm.py:459",
          ordered_inputs, RAGGED_ORDERED, glm_fused.ordered_logistic_glm_parts,
          glm_fused.ordered_logistic_glm_parts_reference, ("logp", "gbeta", "gcuts")),
-        ("glm_categorical_logit", "math_tpu_torch/csrc/glm_fused.cu", "math_tpu/ops/pallas_glm.py:650",
+        ("glm_categorical_logit", "math_tpu_torch/csrc/glm_categorical.cu", "math_tpu/ops/pallas_glm.py:650",
          categorical_inputs, RAGGED_CATEGORICAL, glm_fused.categorical_logit_glm_parts,
          glm_fused.categorical_logit_glm_parts_reference, ("logp", "galpha", "gbeta")),
     ]
@@ -554,16 +589,33 @@ def phase_kernels_ordered_categorical(x_main):
         # x (20 MB) stays in the 50 MB L2 between launches, as between the sampler's gradient calls
         ms = time_ms(lambda: kernel(*t32), warmup=3, reps=20)
         plain_ms = time_ms(lambda: plain(*t32), warmup=2, reps=5)
+        extra = {}
         if name == "glm_ordered_logistic":
             flops = 4.0 * n * d * c + float(ordered_core_ops(k)) * n * c
             # y, x, beta, cuts read; logp, gbeta, gcuts written
             nbytes = 4.0 * (n + n * d + d * c + (k - 1) * c) + 4.0 * (c + d * c + (k - 1) * c)
+            t_ops = flops / PEAK_FP32_FLOPS * 1e3
         else:
             flops = 4.0 * n * d * c * k + float(categorical_core_ops(k)) * n * c
             # y, x, alpha, beta read; logp, galpha, gbeta written
             nbytes = 4.0 * (n + n * d + c * k + c * d * k) + 4.0 * (c + c * k + c * d * k)
+            # the kernel's route: its products as three TF32 products on the
+            # tensor cores, the core on the float32 units
+            t_tensor = 3.0 * 4.0 * n * d * c * k / PEAK_TF32_FLOPS * 1e3
+            t_core = float(categorical_core_ops(k)) * n * c / PEAK_FP32_FLOPS * 1e3
+            t_ops = max(t_tensor, t_core)
+            bmat = t32[3].permute(1, 0, 2).reshape(d, c * k)  # (D, C*K), column c*K + k, made once
+            x1 = torch.cat([t32[1], torch.ones_like(t32[1][:, :1])], dim=1)  # [x, 1], made once
+            extra = {
+                "bound_tensor_ms": t_tensor, "bound_core_ms": t_core,
+                "bound_fp32_fma_ms": max(flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3),
+                "products_library_ms": time_ms(lambda: categorical_products_library(t32[1], x1, bmat), warmup=2, reps=10),
+                "tile_plan": glm_fused.categorical_tile_plan(n, d, c, k, torch.cuda.get_device_properties(0).multi_processor_count),
+                "tf32_tflops": 3.0 * 4.0 * n * d * c * k / (ms * 1e-3) / 1e12,
+            }
         del t32
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        require(max(t_ops, t_bytes) <= ms, f"{name}: {ms} ms beats its bound {max(t_ops, t_bytes)} ms: the count is wrong")
         entries.append({
             "name": name,
             "route": "cuda",
@@ -582,8 +634,48 @@ def phase_kernels_ordered_categorical(x_main):
             "ragged_abs_err": ragged,
             "tolerance": {"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": grad_atol, "ragged_grad_atol": 1e-3},
             "tflops": flops / (ms * 1e-3) / 1e12,
+            **extra,
         })
     return entries
+
+
+def categorical_products_library(x, x1, bmat):
+    """The categorical kernel's two products alone, ``x @ B`` and ``[x, 1]^T
+    Theta``, with ``B`` the (D, C*K) matrix of beta and ``x1 = [x, 1]``, as
+    float32 cuBLAS calls with TF32 off (timing only: a yardstick for the
+    products, not for the function, and the port never calls it).  eta stands
+    in for Theta."""
+    return x1.mT @ (x @ bmat)
+
+
+def check_categorical_refusals():
+    """On a CUDA tensor the categorical wrapper launches its kernel or raises:
+    an x that is not 16-byte aligned (its row tiles are bulk copies), a D no
+    instantiation of the kernel takes and K > 64 each raise ValueError, and
+    neither the kernel nor the plain version runs."""
+    cat = glm_fused.CATEGORICAL
+    before = (glm_fused.LAUNCHES[cat], glm_fused.PLAIN_CALLS[cat])
+    n, d, c, k = 256, 7, 5, 5
+
+    def inputs(dd, kk, misaligned=False):
+        y, *floats = categorical_inputs(n, dd, c, kk, seed=9, scale=0.2)
+        y, x, alpha, beta = with_y(y, floats, torch.float32)
+        if misaligned:
+            buf = torch.empty(n * dd + 1, device="cuda")
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(n, dd)  # contiguous, 4 bytes past a 16-byte boundary
+        return y, x, alpha, beta
+
+    cases = {"misaligned_x": inputs(d, k, misaligned=True), "d_400": inputs(400, k), "k_65": inputs(d, 65)}
+    refused = {}
+    for label, args in cases.items():
+        try:
+            glm_fused.categorical_logit_glm_parts(*args)
+        except ValueError as e:
+            refused[label] = str(e)
+    require(sorted(refused) == sorted(cases), f"categorical wrapper did not refuse {sorted(set(cases) - set(refused))}")
+    require((glm_fused.LAUNCHES[cat], glm_fused.PLAIN_CALLS[cat]) == before, "a refused call launched or fell back")
+    emit("refusals", categorical=refused)
 
 
 def ordinal_data(x, seed=1):
@@ -846,6 +938,28 @@ def compare_chol_ragged():
     return {"cb": CB_RAGGED, "b": B_RAGGED, "bad_matrix": 2, "bad_pivot": 20, "max_abs_err": worst}
 
 
+def chol_stamps(d, ms, reps=5):
+    """How the block kernel's time splits, from ``clock64()`` stamps taken by
+    thread 0 of each block (``chol_inv_block_stamped``): mean clocks of each
+    phase over the blocks and ``reps`` launches, its share of the block's
+    clocks, and that share of the kernel's measured ``ms`` in microseconds."""
+    spans = []
+    for _ in range(reps):
+        _, _, st = chol_blocked.chol_inv_block_stamped(d)
+        torch.cuda.synchronize()
+        spans.append((st[:, 1:] - st[:, :-1]).double())
+    mean = torch.cat(spans).mean(0)
+    total = float(mean.sum())
+    phases = ("load", "factor", "inverse", "store")
+    return {
+        "clocks": {p: float(v) for p, v in zip(phases, mean)},
+        "share": {p: float(v) / total for p, v in zip(phases, mean)},
+        "us": {p: float(v) / total * ms * 1e3 for p, v in zip(phases, mean)},
+        "clocks_per_block": total,
+        "panel": chol_blocked.PANEL,
+    }
+
+
 def library_chol_inv(d):
     """The same function by one PyTorch call pair (timing only)."""
     upper = torch.linalg.cholesky(d).mT
@@ -862,6 +976,8 @@ def phase_kernels_chol(x_gp):
     ms = time_ms(lambda: chol_blocked.chol_inv_block_parts(schur), warmup=3, reps=50)
     plain_ms = time_ms(lambda: chol_blocked.chol_inv_block_reference(schur), warmup=1, reps=3)
     library_ms = time_ms(lambda: library_chol_inv(schur), warmup=2, reps=10)
+    stamps = chol_stamps(schur, ms)
+    emit("kernels_chol", b=B, cb=schur.shape[0], ms=ms, stamps=stamps)
     cb = schur.shape[0]
     nbytes, flops = 3.0 * cb * B * B * 4, (4.0 / 3.0) * B**3 * cb
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
@@ -878,8 +994,11 @@ def phase_kernels_chol(x_gp):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,  # torch.linalg.cholesky + solve_triangular(U, I); the port never calls it here
         "shape": {"cb": cb, "b": B},
-        "dependent_steps": 2 * B,
+        "barrier_stages": chol_blocked.block_kernel_stages(B),
+        "us_per_stage": ms * 1e3 / chol_blocked.block_kernel_stages(B),
+        "dependent_steps": 2 * B,  # the column-by-column kernel's count, for comparison
         "us_per_step": ms * 1e3 / (2 * B),
+        "stamps": stamps,
         "first_block": report_first,
         "schur_block": report_schur,
         "ragged": ragged,
@@ -1103,6 +1222,7 @@ def main():
     entries = phase_kernels(x)
     chol_entry = phase_kernels_chol(gp_regression.synthetic_data(N_GP, seed=0)[0])
     ord_entry, cat_entry = phase_kernels_ordered_categorical(x)
+    check_categorical_refusals()
     res = phase_main_path(x, y, beta_true, entries)
     if profiling:
         args = (torch.tensor(x, device="cuda"), torch.tensor(y, device="cuda"))

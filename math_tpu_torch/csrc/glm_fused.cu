@@ -1,12 +1,12 @@
-// Fused GLM log-prob + parameter gradients for a batch of chains: the port's
-// three GLM kernels, which share their tiles, their two products and their
-// second pass.
+// Fused GLM log-prob + parameter gradients for a batch of chains: two of the
+// port's three GLM kernels, which share their tiles, their two products and
+// their second pass.  The third, the categorical logit, is in
+// glm_categorical.cu (tensor cores, 3xTF32).
 //
 // Replaces the TPU kernels of math_tpu/ops/pallas_glm.py:
 //
 //   glm_fused_kernel<F>      _glm_kernel          four families, eta = x @ beta + alpha
 //   glm_ordered_kernel       _ordered_kernel      ordered-logistic GLM
-//   glm_categorical_kernel   _categorical_kernel  categorical-logit GLM
 //
 // Four families.  y (N,), x (N, K) row-major, alpha (C,), beta (K, C) row-major
 // and, for the sigma/phi families, extra (C,), all float32:
@@ -24,23 +24,11 @@
 //     w2 = exp(u2 - 2 sp(u2) - lp),  w1 = exp(u1 - 2 sp(u1) - lp)
 //     logp = sum_n lp,  gbeta = x^T (w1 - w2),  gcuts_j = sum_{y=j} w2 - sum_{y=j+1} w1
 //
-// Categorical logit.  y (N,) int32 in 1..K, x (N, D), alpha (C, K), beta (C, D, K):
-//
-//     eta[c] = x @ beta[c] + alpha[c]   lp = eta_y - logsumexp_k eta_k
-//     theta' = onehot(y) - softmax(eta)
-//     logp = sum_n lp,  galpha = sum_n theta',  gbeta = x^T theta'
-//
-// Read beta as a (D, C*K) matrix, column c*K + k: then eta is one product with
-// C*K columns, and the softmax runs over groups of K adjacent columns.  A
-// 64-column tile holds floor(64/K) whole chains (60 of 64 columns at K=5).  The
-// (C, D, K) -> (D, C*K) view is indexed when the beta tile is staged (once per
-// block) and when gbeta is written back, so no permuted copy is made per call.
-//
 // The categories are assumed valid (as the JAX dispatchers assume); y is
 // clamped into 1..K only so that an invalid value cannot read outside a tile.
 //
-// What bounds them: operations.  The two products are 4*N*D*C flops (times K
-// for the categorical) on about 4*(N*D + N) bytes of data, some 250 flops per
+// What bounds them: operations.  The two products are 4*N*D*C flops on about
+// 4*(N*D + N) bytes of data, some 250 flops per
 // byte at D=50, C=256, against about 20 where an H100's float32 units
 // (67 TFLOP/s outside the tensor cores) meet its memory (3.35 TB/s).  Products
 // are plain float32 FMAs, as the TPU kernels pin float32 products: no TF32 mma.
@@ -62,16 +50,13 @@
 //    extended cut tile, and gcuts is summed by one thread per (cut, chain)
 //    walking the tile's 64 rows in order.  expm1f / log1pf come from the CUDA
 //    math library (the TPU kernel carries a polynomial expm1).
-//  * The categorical TPU kernel's (C, 1, K) lane-0 logp block is a Mosaic
-//    tiling rule: logp (C,) is written directly.  galpha is the x^T theta'
-//    product against a column of ones (row D of the block's sums).
 //
 // Shared memory per block, 4 bytes a float: kernel 1 64*64 + 2*64*K + 64*K + 64
 // (55 KB at K=50); ordered 3*64*64 + 2*64*D + 2*64*K + 64*D + 64 (89 KB at D=50,
-// K=5); categorical 64*64 + 2*64*D + 64 + 64*floor(64/K) + 64*D + 64 (58 KB).
-// The wrappers refuse what does not fit.  Left for the change that makes them
-// fast: wgmma with a 3xTF32 split, TMA staging of the x tile into a ring, and
-// one pass over x for all chain tiles.
+// K=5).  The wrappers refuse what does not fit.  Left for the change that makes
+// them fast: wgmma with the 3xTF32 split of tf32x3.cuh and bulk-copy staging of
+// the x tile into a ring, as glm_categorical.cu does, and one pass over x for
+// all chain tiles.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -483,125 +468,6 @@ glm_ordered_kernel(const int* __restrict__ y, const float* __restrict__ x,
     }
 }
 
-// ---------------------------------------------------------------------------
-// Kernel 3: categorical logit
-// ---------------------------------------------------------------------------
-
-// partials: (gridDim.x, C*(1 + K + D*K)); logp (C), galpha (C, K), gbeta (C, D, K).
-__global__ void __launch_bounds__(THREADS)
-glm_categorical_kernel(const int* __restrict__ y, const float* __restrict__ x,
-                       const float* __restrict__ alpha, const float* __restrict__ beta,
-                       int n, int d, int c, int kcls, float* __restrict__ partials) {
-    const int cpt = TC / kcls;     // chains per tile
-    const int used = cpt * kcls;   // columns of the tile that hold a class
-    extern __shared__ float4 smem4[];
-    float* th = reinterpret_cast<float*>(smem4);  // TM * TC       eta, then theta' in place
-    float* bs = th + TM * TC;                     // d * TC        beta tile, column q*K + k
-    float* gbs = bs + d * TC;                     // (d+1) * TC    gbeta sums; row d: galpha
-    float* lps = gbs + (d + 1) * TC;              // TM * cpt      lp of each (row, chain)
-    float* xs = lps + TM * cpt;                   // TM * d        x tile, flat
-    int* ys = reinterpret_cast<int*>(xs + TM * d);  // TM
-
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;  // columns tx*4 .. tx*4+3 of the tile
-    const int ty = tid / 16;  // rows    ty*4 .. ty*4+3 of the tile
-    const int c0 = blockIdx.y * cpt;  // first chain of the tile
-
-    for (int i = tid; i < d * TC; i += THREADS) {
-        const int dd = i / TC;
-        const int j = i % TC;
-        const int cj = c0 + j / kcls;
-        bs[i] = (j < used && cj < c) ? beta[((size_t)cj * d + dd) * kcls + j % kcls] : 0.0f;
-    }
-    for (int i = tid; i < (d + 1) * TC; i += THREADS) gbs[i] = 0.0f;
-
-    float a[RC];
-    bool cv[RC];
-#pragma unroll
-    for (int j = 0; j < RC; ++j) {
-        const int col = tx * RC + j;
-        const int cj = c0 + col / kcls;
-        cv[j] = col < used && cj < c;
-        a[j] = cv[j] ? alpha[(size_t)cj * kcls + col % kcls] : 0.0f;
-    }
-    // threads tid < cpt: the logp sum of chain c0 + tid.  One thread adds all
-    // of a block's rows of its chain (thousands), so each tile's 64 rows are
-    // summed in float and the tile sums in double.
-    double s_lp = 0.0;
-
-    const int n_tiles = (n + TM - 1) / TM;
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const int r0 = t * TM;
-        // the previous tile's product and logp sums are done with xs, th, lps
-        __syncthreads();
-        stage_x_tile(xs, x, r0, n, d);
-        if (tid < TM) {
-            ys[tid] = (r0 + tid < n) ? min(max(y[r0 + tid], 1), kcls) : 1;
-        }
-        __syncthreads();
-
-        // eta = x_tile @ beta_tile + alpha, to shared memory
-        float acc[RM][RC];
-        eta_product(acc, xs, bs, d);
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-            float e[RC];
-#pragma unroll
-            for (int j = 0; j < RC; ++j) e[j] = cv[j] ? acc[i][j] + a[j] : 0.0f;
-            *reinterpret_cast<float4*>(th + (ty * RM + i) * TC + tx * RC) = make_float4(e[0], e[1], e[2], e[3]);
-        }
-        __syncthreads();
-
-        // lp and theta' of each (row, chain) from its K logits, in place
-        for (int task = tid; task < TM * cpt; task += THREADS) {
-            const int r = task / cpt;
-            const int q = task % cpt;
-            float* e = th + r * TC + q * kcls;
-            const bool ok = (r0 + r < n) && (c0 + q < c);
-            const int yk = ys[r] - 1;
-            float m = e[0];
-            for (int k = 1; k < kcls; ++k) m = fmaxf(m, e[k]);
-            float s = 0.0f;
-            for (int k = 0; k < kcls; ++k) s += expf(e[k] - m);
-            const float inv_s = 1.0f / s;
-            lps[r * cpt + q] = ok ? e[yk] - (m + logf(s)) : 0.0f;
-            for (int k = 0; k < kcls; ++k) {
-                const float tp = (k == yk ? 1.0f : 0.0f) - expf(e[k] - m) * inv_s;
-                e[k] = ok ? tp : 0.0f;
-            }
-        }
-        __syncthreads();
-
-        if (tid < cpt) {
-            float tile = 0.0f;
-            for (int r = 0; r < TM; ++r) tile += lps[r * cpt + tid];
-            s_lp += (double)tile;
-        }
-
-        // [gbeta; galpha] += [x_tile, 1]^T @ theta'_tile
-        xt_theta_product<true>(gbs, xs, th, d);
-    }
-    __syncthreads();
-
-    const size_t m = (size_t)c * (1 + kcls + (size_t)d * kcls);
-    float* part = partials + (size_t)blockIdx.x * m;
-    float* part_ga = part + c;
-    float* part_gb = part_ga + (size_t)c * kcls;
-    if (tid < cpt && c0 + tid < c) part[c0 + tid] = (float)s_lp;
-    for (int i = tid; i < (d + 1) * TC; i += THREADS) {
-        const int dd = i / TC;
-        const int j = i % TC;
-        const int cj = c0 + j / kcls;
-        if (j >= used || cj >= c) continue;
-        const int k = j % kcls;
-        if (dd < d) {
-            part_gb[((size_t)cj * d + dd) * kcls + k] = gbs[i];
-        } else {
-            part_ga[(size_t)cj * kcls + k] = gbs[i];
-        }
-    }
-}
-
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -668,29 +534,4 @@ extern "C" int glm_ordered_launch(const void* y, const void* x, const void* beta
         glm_ordered_kernel, grid, (size_t)glm_ordered_smem_bytes(d, kcat), reinterpret_cast<cudaStream_t>(stream_ptr),
         static_cast<float*>(partials), out, (long long)(d + kcat) * c, static_cast<const int*>(y),
         static_cast<const float*>(x), static_cast<const float*>(beta), static_cast<const float*>(cuts), n, d, c, kcat);
-}
-
-// Chains one column tile of the categorical kernel holds.
-extern "C" int glm_categorical_chains_per_tile(int kcls) { return TC / kcls; }
-
-// Bytes of dynamic shared memory one block of the categorical kernel needs
-// for d columns of x and kcls classes.
-extern "C" long long glm_categorical_smem_bytes(int d, int kcls) {
-    return (long long)sizeof(float) *
-           ((long long)TM * TC + 2LL * d * TC + TC + (long long)TM * (TC / kcls) + (long long)TM * d + TM);
-}
-
-// partials: (row_blocks, c*(1 + kcls + d*kcls)); out: the same length, logp
-// (c), galpha (c, kcls), gbeta (c, d, kcls).
-extern "C" int glm_categorical_launch(const void* y, const void* x, const void* alpha, const void* beta,
-                                      void* partials, void* out, int n, int d, int c, int kcls,
-                                      int row_blocks, void* stream_ptr) {
-    if (kcls < 1 || kcls > TC) return (int)cudaErrorInvalidValue;
-    const int cpt = TC / kcls;
-    const dim3 grid(row_blocks, (c + cpt - 1) / cpt);
-    return (int)launch_two_pass(
-        glm_categorical_kernel, grid, (size_t)glm_categorical_smem_bytes(d, kcls),
-        reinterpret_cast<cudaStream_t>(stream_ptr), static_cast<float*>(partials), out,
-        (long long)c * (1 + kcls + (long long)d * kcls), static_cast<const int*>(y), static_cast<const float*>(x),
-        static_cast<const float*>(alpha), static_cast<const float*>(beta), n, d, c, kcls);
 }

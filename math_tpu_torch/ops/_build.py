@@ -3,7 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library in the (git-ignored) build
 directory of ``get_config().kernel_build_dir`` and loaded with ``ctypes``; the
-library's name carries a hash of the source, so an edited source is rebuilt.
+library's name carries a hash of the source and of every header it includes
+(``#include "x.cuh"``, recursively), so an edited source or header is rebuilt.
+``nvcc`` runs with ``-Xptxas -v``; its report of each kernel's registers,
+shared memory and spills is kept in ``BUILD_LOG``.
 Nothing is built when a module is imported, and nothing here falls back to
 another implementation: without ``nvcc`` the load raises.
 """
@@ -13,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,11 +26,13 @@ from math_tpu_torch.config import get_config
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _loaded: dict = {}
 BUILD_SECONDS: dict = {}
+BUILD_LOG: dict = {}
 
 
 class KernelCompileError(RuntimeError):
@@ -57,10 +63,27 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, name + ".cu")
 
 
+def sources_of(path: str, seen=None) -> list:
+    """``path`` and the files it includes by a quoted name, recursively, each once."""
+    seen = [] if seen is None else seen
+    path = os.path.abspath(path)
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        sources_of(os.path.join(os.path.dirname(path), inc), seen)
+    return seen
+
+
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(get_config().kernel_build_dir, f"lib{name}_{digest}.so")
+    h = hashlib.sha256()
+    for path in sources_of(source_path(name)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(get_config().kernel_build_dir, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def start_build(name: str):
@@ -89,6 +112,7 @@ def finish_build(name: str, started) -> str:
         raise KernelCompileError(f"nvcc failed on {source_path(name)} (exit {proc.returncode}):\n{out}")
     os.replace(tmp, lib)
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_LOG[name] = out
     return lib
 
 

@@ -51,6 +51,17 @@ LAUNCHES = {KERNEL: 0}
 PLAIN_CALLS = {KERNEL: 0}
 
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one block may use on sm_90
+PANEL = 16  # the kernel's panel width, ``P`` in csrc/chol_inv_block.cu
+STAMPS = ("start", "loaded", "factored", "inverted", "stored")
+
+
+def block_kernel_stages(b, p=PANEL):
+    """Barrier-separated stages of the block kernel for a (b, b) matrix: the
+    load; per factor panel the diagonal block, then (but for the last) the
+    panel's row block and the trailing update; the diagonal inverses; two per
+    off-diagonal row panel of W.  Was ``2 b`` dependent steps column by column."""
+    n = -(-b // p)
+    return 1 + n + 2 * (n - 1) + 1 + 2 * (n - 1)
 
 
 def reset_counts():
@@ -104,8 +115,8 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load_library(KERNEL)
-        lib.chol_inv_block_launch.restype = ctypes.c_int
-        lib.chol_inv_block_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.chol_inv_block_launch_stamped.restype = ctypes.c_int
+        lib.chol_inv_block_launch_stamped.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.chol_inv_block_smem_bytes.restype = ctypes.c_longlong
         lib.chol_inv_block_smem_bytes.argtypes = [ctypes.c_int]
         _lib = lib
@@ -118,6 +129,19 @@ def chol_inv_block_parts(d):
     contiguous, else this raises); a CPU tensor goes to
     ``chol_inv_block_reference``.  Not differentiable: see ``chol_inv_block``.
     """
+    return _block_parts(d, stamps=False)[:2]
+
+
+def chol_inv_block_stamped(d):
+    """``(U, W, stamps)`` for a CUDA ``d``: the kernel with ``clock64()`` read
+    by thread 0 of each block at the five points of ``STAMPS``, ``stamps (Cb,
+    5)`` int64, to split its time between the phases (for measurement)."""
+    if not isinstance(d, torch.Tensor) or d.device.type != "cuda":
+        raise ValueError("chol_inv_block_stamped: the stamps are the CUDA kernel's; d must be a CUDA tensor")
+    return _block_parts(d, stamps=True)
+
+
+def _block_parts(d, stamps):
     if not isinstance(d, torch.Tensor) or d.ndim != 3 or d.shape[-1] != d.shape[-2]:
         raise ValueError("chol_inv_block_parts: d must be a torch.Tensor of shape (Cb, B, B)")
     if d.device.type == "cpu":
@@ -137,13 +161,15 @@ def chol_inv_block_parts(d):
     with torch.cuda.device(d.device):
         u = torch.empty_like(d)
         w = torch.empty_like(d)
-        err = lib.chol_inv_block_launch(
-            d.data_ptr(), u.data_ptr(), w.data_ptr(), cb, B, torch.cuda.current_stream().cuda_stream
+        st = torch.zeros((cb, len(STAMPS)), dtype=torch.int64, device=d.device) if stamps else None
+        err = lib.chol_inv_block_launch_stamped(
+            d.data_ptr(), u.data_ptr(), w.data_ptr(), None if st is None else st.data_ptr(), cb, B,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"chol_inv_block kernel launch failed: CUDA error {err}")
     LAUNCHES[KERNEL] += 1
-    return u, w
+    return u, w, st
 
 
 def _phi(x):

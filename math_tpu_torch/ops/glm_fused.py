@@ -1,16 +1,17 @@
 """Fused GLM log-prob + parameter gradients for a batch of chains.
 
 Counterpart: ``math_tpu/ops/pallas_glm.py`` (its three kernels, the AD wiring
-and the six ``*_chains`` dispatchers).  Three hand-written CUDA kernels in one
-source, ``csrc/glm_fused.cu``, which share their tiles, products and second
-pass:
+and the six ``*_chains`` dispatchers).  Three hand-written CUDA kernels in two
+sources:
 
-- ``glm_fused_kernel`` (``_glm_kernel``): four families with one linear
-  predictor per chain;
-- ``glm_ordered_kernel`` (``_ordered_kernel``): the ordered-logistic GLM,
-  ``logp``, ``gbeta``, ``gcuts``;
-- ``glm_categorical_kernel`` (``_categorical_kernel``): the categorical-logit
-  GLM, ``logp``, ``galpha``, ``gbeta``.
+- ``glm_fused_kernel`` (``_glm_kernel``), ``csrc/glm_fused.cu``: four families
+  with one linear predictor per chain;
+- ``glm_ordered_kernel`` (``_ordered_kernel``), the same source: the
+  ordered-logistic GLM, ``logp``, ``gbeta``, ``gcuts``;
+- ``glm_categorical_kernel`` (``_categorical_kernel``),
+  ``csrc/glm_categorical.cu``: the categorical-logit GLM, ``logp``,
+  ``galpha``, ``gbeta``, its two products on the tensor cores in 3xTF32
+  (``csrc/tf32x3.cuh``); ``categorical_tile_plan`` picks its tile.
 
 For the four families one pass over ``x`` gives, per chain,
 
@@ -118,10 +119,11 @@ def glm_fused_parts_reference(family, y, x, alpha, beta, extra=None):
 # ---------------------------------------------------------------------------
 
 _lib = None
+_cat_lib = None
 
 
 def _library():
-    """The three GLM kernels of ``csrc/glm_fused.cu``, built at first use."""
+    """The kernels of ``csrc/glm_fused.cu`` (four families, ordered), built at first use."""
     global _lib
     if _lib is None:
         lib = _build.load_library("glm_fused")
@@ -131,16 +133,27 @@ def _library():
         )
         lib.glm_fused_smem_bytes.restype = ctypes.c_longlong
         lib.glm_fused_smem_bytes.argtypes = [ctypes.c_int]
-        for name in ("glm_ordered_launch", "glm_categorical_launch"):
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        for name in ("glm_ordered_smem_bytes", "glm_categorical_smem_bytes"):
-            getattr(lib, name).restype = ctypes.c_longlong
-            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.glm_categorical_chains_per_tile.restype = ctypes.c_int
-        lib.glm_categorical_chains_per_tile.argtypes = [ctypes.c_int]
+        lib.glm_ordered_launch.restype = ctypes.c_int
+        lib.glm_ordered_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.glm_ordered_smem_bytes.restype = ctypes.c_longlong
+        lib.glm_ordered_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         _lib = lib
     return _lib
+
+
+def _categorical_library():
+    """The categorical kernel of ``csrc/glm_categorical.cu``, built at first use."""
+    global _cat_lib
+    if _cat_lib is None:
+        lib = _build.load_library("glm_categorical")
+        lib.glm_categorical_launch.restype = ctypes.c_int
+        lib.glm_categorical_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.glm_categorical_smem_bytes.restype = ctypes.c_longlong
+        lib.glm_categorical_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.glm_categorical_chains_per_tile.restype = ctypes.c_int
+        lib.glm_categorical_chains_per_tile.argtypes = [ctypes.c_int] * 2
+        _cat_lib = lib
+    return _cat_lib
 
 
 def _check(name, t, shape, device, who="glm_fused_parts"):
@@ -164,10 +177,11 @@ def _check_cuda_layout(who, y, floats):
             raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def row_blocks_for(n, c, device, chains_per_tile=64):
-    """Blocks along the rows: about two blocks per SM over all chain tiles."""
+def row_blocks_for(n, c, device):
+    """Blocks along the rows of kernels 1 and 2: about two blocks per SM over
+    all 64-chain tiles (the categorical kernel's come from ``categorical_tile_plan``)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chain_tiles = (c + chains_per_tile - 1) // chains_per_tile
+    chain_tiles = (c + 63) // 64
     n_tiles = (n + 63) // 64
     return max(1, min(n_tiles, (2 * sms + chain_tiles - 1) // chain_tiles))
 
@@ -460,7 +474,64 @@ def ordered_logistic_glm_lpmf_chains(y, x, beta, cuts):
 # categorical_logit_glm (ref: pallas_glm.py:640-808 and the dispatcher :885-905)
 # ---------------------------------------------------------------------------
 
-MAX_CLASSES = 64  # one chain's classes share a 64-column tile of the kernel
+MAX_CLASSES = 64  # one chain's classes share a column tile of the kernel
+
+# The kernel's instantiations (wgs, mt): wgs warpgroups of an n40 column slice
+# each (a tile of 40*wgs columns) for mt 64-row tiles of [gbeta; galpha]
+# (mt = ceil((D + 1) / 64)).  The same set as GLM_CATEGORICAL_INSTANCES in
+# csrc/glm_categorical.cu.
+CATEGORICAL_INSTANCES = ((2, 1), (2, 2), (2, 3), (2, 4), (1, 4), (1, 5))
+SM_SMEM_BYTES = 233_472  # shared memory of one SM on sm_90; each resident block also takes 1 KB
+
+
+def _up128(b):
+    return (b + 127) // 128 * 128
+
+
+def categorical_smem_bytes(n_cols, d, cpt, stages):
+    """Bytes of shared memory one block of the categorical kernel needs (its
+    ``layout_of``): beta hi/lo (n_cols x Dp), theta' hi/lo (n_cols x 64), a
+    ring of ``stages`` x and y tiles, alpha, the tile's lp by 4-row groups, the
+    lp sums, barriers."""
+    dp = (d + 7) // 8 * 8
+    parts = (n_cols * dp * 4, n_cols * dp * 4, n_cols * 64 * 4, n_cols * 64 * 4, stages * 64 * d * 4,
+             stages * 64 * 4, n_cols * 4, 16 * cpt * 4, cpt * 8, stages * 8)
+    return sum(_up128(p) for p in parts)
+
+
+def categorical_tile_plan(n, d, c, k, sms):
+    """The categorical kernel's tile for ``x (n, d)``, ``c`` chains of ``k``
+    classes on a card with ``sms`` SMs, as a dict: the instantiation (``wgs``
+    warpgroups of an n40 slice, ``n_cols = 40*wgs`` columns, ``mt``),
+    ``cpt`` (whole chains per tile), ``column_tiles``, ``stages`` of the x ring
+    (2 where it fits), ``smem`` bytes, ``blocks_per_sm`` that shared memory
+    lets reside together, and ``row_blocks``.  Among the instantiations for
+    this D it takes the one with the least padded column work per resident
+    block (columns over all tiles / blocks per SM: two blocks on an SM hide
+    each other's latencies), then the fewest tiles (each streams x once).
+    None when no instantiation takes the shape."""
+    mt = (d + 64) // 64
+    best = None
+    for wgs, imt in CATEGORICAL_INSTANCES:
+        n_cols = 40 * wgs
+        cpt = n_cols // k
+        if imt != mt or cpt < 1:
+            continue
+        stages = next((s for s in (2, 1) if categorical_smem_bytes(n_cols, d, cpt, s) <= MAX_SMEM_BYTES), None)
+        if stages is None:
+            continue
+        smem = categorical_smem_bytes(n_cols, d, cpt, stages)
+        per_sm = max(1, min(2, SM_SMEM_BYTES // (smem + 1024)))
+        tiles = -(-c // cpt)
+        key = (tiles * n_cols / per_sm, tiles)
+        if best is None or key < best[0]:
+            best = (key, {"wgs": wgs, "n_cols": n_cols, "mt": mt, "cpt": cpt, "column_tiles": tiles,
+                          "stages": stages, "smem": smem, "blocks_per_sm": per_sm})
+    if best is None:
+        return None
+    plan = best[1]
+    plan["row_blocks"] = max(1, min(-(-n // 64), sms * plan["blocks_per_sm"] // plan["column_tiles"]))
+    return plan
 
 
 def _categorical_thetap(y, x, alpha, beta):
@@ -491,7 +562,8 @@ def categorical_logit_glm_parts(y, x, alpha, beta):
     ``propto=True`` form, valid data assumed.
 
     CUDA tensors go to the hand-written kernel (``y`` int32, the rest float32,
-    all contiguous, K <= 64, else this raises); CPU tensors go to
+    all contiguous, x and y 16-byte aligned, K <= 64 and a shape the tile plan
+    takes, else this raises); CPU tensors go to
     ``categorical_logit_glm_parts_reference``.
     """
     who = "categorical_logit_glm_parts"
@@ -515,17 +587,23 @@ def categorical_logit_glm_parts(y, x, alpha, beta):
     if k > MAX_CLASSES:
         raise ValueError(f"{who}: K={k} classes; the kernel takes at most {MAX_CLASSES} (one chain's classes per column tile)")
 
-    lib = _library()
-    if lib.glm_categorical_smem_bytes(d, k) > MAX_SMEM_BYTES:
-        raise ValueError(f"{who}: D={d} columns need more shared memory than a block has")
-    rb = row_blocks_for(n, c, x.device, chains_per_tile=lib.glm_categorical_chains_per_tile(k))
+    for name, t in (("x", x), ("y", y)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must be 16-byte aligned (its row tiles are bulk copies)")
+    plan = categorical_tile_plan(n, d, c, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if plan is None:
+        raise ValueError(f"{who}: D={d} columns with K={k} classes need more shared memory or registers than a block has")
+    lib = _categorical_library()
+    n_cols, cpt, stages, rb = plan["n_cols"], plan["cpt"], plan["stages"], plan["row_blocks"]
+    if lib.glm_categorical_smem_bytes(n_cols, d, cpt, stages) != plan["smem"] or lib.glm_categorical_chains_per_tile(k, n_cols) != cpt:
+        raise RuntimeError(f"{who}: the tile plan disagrees with the kernel's layout")
     m = c * (1 + k + d * k)
     with torch.cuda.device(x.device):
         partials = torch.empty((rb, m), dtype=torch.float32, device=x.device)
         out = torch.empty((m,), dtype=torch.float32, device=x.device)
         err = lib.glm_categorical_launch(
             y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            n, d, c, k, rb, torch.cuda.current_stream().cuda_stream,
+            n, d, c, k, plan["wgs"], plan["mt"], cpt, stages, rb, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"glm_categorical kernel launch failed: CUDA error {err}")

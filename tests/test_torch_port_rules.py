@@ -30,7 +30,11 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "math_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "math_tpu", "triton")
 MAX_LINE = 160
-KERNEL_SOURCES = ["math_tpu_torch/csrc/glm_fused.cu", "math_tpu_torch/csrc/chol_inv_block.cu"]
+KERNEL_SOURCES = [
+    "math_tpu_torch/csrc/glm_fused.cu", "math_tpu_torch/csrc/glm_categorical.cu", "math_tpu_torch/csrc/tf32x3.cuh",
+    "math_tpu_torch/csrc/chol_inv_block.cu",
+]
+GLM_SOURCES = ("math_tpu_torch/csrc/glm_fused.cu", "math_tpu_torch/csrc/glm_categorical.cu")
 TPU_GENERATIONS = ("v5e", "v5p", "v6e", "v4-8")
 
 LAYER = {
@@ -182,11 +186,13 @@ def test_kernel_loader_raises_without_nvcc(tmp_path):
         with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
             glm_fused._library()
         with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+            glm_fused._categorical_library()
+        with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
             chol_blocked._library()
     finally:
         update_config(kernel_build_dir=old)
     assert not os.path.exists(tmp_path / "build")
-    assert glm_fused._lib is None and chol_blocked._lib is None
+    assert glm_fused._lib is None and glm_fused._cat_lib is None and chol_blocked._lib is None
 
 
 GLM_ENTRY_POINTS = (
@@ -197,11 +203,13 @@ GLM_ENTRY_POINTS = (
 
 @pytest.mark.parametrize("entry", GLM_ENTRY_POINTS)
 def test_glm_entry_point_is_declared_and_bound(entry):
-    """Each C entry point the GLM loader binds is declared ``extern "C"`` in
-    the one GLM source, and the wrappers name it: the three kernels share one
-    build and one loader."""
-    with open(os.path.join(ROOT, "math_tpu_torch/csrc/glm_fused.cu"), encoding="utf-8") as f:
-        cu = f.read()
+    """Each C entry point the GLM loaders bind is declared ``extern "C"`` in
+    one of the two GLM sources (kernels 1 and 2 in ``glm_fused.cu``, the
+    categorical kernel in ``glm_categorical.cu``), and the wrappers name it."""
+    cu = ""
+    for rel in GLM_SOURCES:
+        with open(os.path.join(ROOT, rel), encoding="utf-8") as f:
+            cu += f.read()
     with open(os.path.join(PKG, "ops", "glm_fused.py"), encoding="utf-8") as f:
         py = f.read()
     assert f' {entry}(' in "".join(line for line in cu.splitlines(True) if line.startswith('extern "C"')), entry

@@ -1,0 +1,208 @@
+#!/usr/bin/env python3
+"""Where the time of the hand kernels goes, from clock64() reads on the GPU.
+
+Run from the repository root on a machine with one GPU and nvcc:
+
+    python3 tools/phase_clocks.py
+
+It builds, next to the port's kernels (``get_config().kernel_build_dir``):
+
+- ``tools/wgmma_layout_probe.cu`` and runs it: the register and shared-memory
+  layouts of ``csrc/tf32x3.cuh``, the accuracy of one and of three TF32
+  products, and the bulk copy;
+- a copy of ``csrc/glm_categorical.cu`` with a clock read by thread 0 of block
+  (0, 0) between the phases of each row tile (wait for the tile, product 1,
+  eta to shared memory, softmax, lp sums, product 2, the barrier at the top of
+  the next tile), run at the categorical path's shape (N=100,000, D=50,
+  C=256, K=5); printed as clocks per tile;
+- a copy of ``csrc/chol_inv_block.cu`` with a clock read by thread 0 of block
+  0 between its stages, run on a Schur block of the GP path (Cb=32, B=128);
+  printed as clocks per launch;
+- ``tools/chol_inv_block_columnwise.cu``, the column-by-column block kernel the
+  panelled one replaced, with its load / factor / inverse / store stamps on
+  the same blocks.
+
+Each result is one JSON line; the last line is the card's name and power
+limit.  Measurement only: nothing of the port calls these copies.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from math_tpu_torch import get_config  # noqa: E402
+from math_tpu_torch.models import glm_logistic, gp_regression  # noqa: E402
+from math_tpu_torch.ops import _build, glm_fused  # noqa: E402
+
+CSRC = os.path.join(ROOT, "math_tpu_torch", "csrc")
+OUT = os.path.join(get_config().kernel_build_dir, "probes")
+PROF = (
+    "__device__ long long g_prof[16];\n"
+    "#define PROF(i) if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) "
+    "{ long long now_ = clock64(); g_prof[i] += now_ - last_; last_ = now_; }\n"
+)
+READ = (
+    '\nextern "C" void prof_read(long long* out) { cudaMemcpyFromSymbol(out, g_prof, 16 * sizeof(long long)); }\n'
+    'extern "C" void prof_reset() { long long z[16] = {0}; cudaMemcpyToSymbol(g_prof, z, sizeof(z)); }\n'
+)
+
+# (anchor, the phase that ends there or None for the first read) for each
+# copy; a clock read goes just before its anchor
+CATEGORICAL = [
+    ("    for (int it = 0;; ++it) {", None),
+    ("        const float* xs = xring + (size_t)s * TM * d;", "top_barrier"),
+    ("        // --- product 1: eta", "wait_for_tile"),
+    ("        // eta + alpha into the theta' buffer", "product_1"),
+    ("        // --- lp and theta' of each", "eta_to_shared"),
+    ("        // the tile's lp, per chain in float", "softmax"),
+    ("        // --- product 2:", "lp_sums"),
+    ("        fence_proxy_async();  // theta' is written again", "product_2"),
+]
+BLOCK = [
+    ("    // --- factor: d = U^T U, by panels of P columns", None),
+    ("        const int t0 = k0 + kb;  // first trailing row / column", "diagonal_blocks"),
+    ("        // 2. the panel's row block", "barrier_after_diagonal"),
+    ("        // 3. trailing update of the upper triangle", "panel_row_blocks"),
+    ("    }\n    __syncthreads();\n    stamp(stamps, 2);", "trailing_updates"),
+    ("    // off-diagonal row panels, bottom up", "diagonal_inverses"),
+    ("        // rows i0 .. i0+P-1 of W beyond the panel", "products_T"),
+    ("    }\n    stamp(stamps, 3);", "back_substitutions"),
+]
+
+
+def instrument(src, anchors):
+    """The source with a clock read before each anchor; the names of the phases."""
+    text = open(os.path.join(CSRC, src)).read()
+    head = text.index("namespace {")
+    text = text[:head] + PROF + text[head:]
+    names = []
+    for anchor, name in anchors:
+        if anchor not in text:
+            raise RuntimeError(f"{src}: anchor not found: {anchor!r}")
+        indent = anchor[: len(anchor) - len(anchor.lstrip())]
+        if name is None:
+            read = f"{indent}long long last_ = clock64();\n"
+        else:
+            read = f"{indent}PROF({len(names)})\n"
+            names.append(name)
+        text = text.replace(anchor, read + anchor, 1)
+    return text + READ, names
+
+
+def nvcc(src, out, shared=True):
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-I", CSRC]
+    flags += ["-shared", "-Xcompiler", "-fPIC"] if shared else []
+    return subprocess.Popen([_build.find_nvcc(), *flags, "-o", out, src], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish(proc, what):
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what}:\n{out}")
+
+
+def read_clocks(lib, names, per):
+    buf = (ctypes.c_longlong * 16)()
+    lib.prof_read(buf)
+    return {name: buf[i] / per for i, name in enumerate(names)}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("phase_clocks: no GPU", file=sys.stderr)
+        sys.exit(2)
+    os.makedirs(OUT, exist_ok=True)
+    cat_src, cat_names = instrument("glm_categorical.cu", CATEGORICAL)
+    blk_src, blk_names = instrument("chol_inv_block.cu", BLOCK)
+    paths = {}
+    for name, text in (("categorical_clocks", cat_src), ("block_clocks", blk_src)):
+        paths[name] = os.path.join(OUT, name + ".cu")
+        with open(paths[name], "w") as f:
+            f.write(text)
+    procs = {
+        "probe": nvcc(os.path.join(ROOT, "tools", "wgmma_layout_probe.cu"), os.path.join(OUT, "wgmma_layout_probe"), False),
+        "categorical_clocks": nvcc(paths["categorical_clocks"], os.path.join(OUT, "libcategorical_clocks.so")),
+        "block_clocks": nvcc(paths["block_clocks"], os.path.join(OUT, "libblock_clocks.so")),
+        "columnwise": nvcc(os.path.join(ROOT, "tools", "chol_inv_block_columnwise.cu"), os.path.join(OUT, "libcolumnwise.so")),
+    }
+    for what, proc in procs.items():
+        finish(proc, what)
+
+    probe = subprocess.run([os.path.join(OUT, "wgmma_layout_probe")], check=True, capture_output=True, text=True, timeout=120)
+    for line in probe.stdout.splitlines():
+        print(json.dumps({"phase": "wgmma_layout_probe", **json.loads(line)}), flush=True)
+
+    # the categorical kernel at the categorical path's shape
+    n, d, c, k = cs.N_MAIN, cs.K_MAIN, cs.C_MAIN, cs.K_CAT
+    x = glm_logistic.synthetic_data(n, d)[0]
+    y, _, *params = cs.categorical_inputs(n, d, c, k, seed=521, scale=0.1, x=x)
+    yy, xx, aa, bb = cs.with_y(y, [x, *params], torch.float32)
+    plan = glm_fused.categorical_tile_plan(n, d, c, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    lib = ctypes.CDLL(os.path.join(OUT, "libcategorical_clocks.so"))
+    lib.glm_categorical_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    m = c * (1 + k + d * k)
+    part = torch.empty((plan["row_blocks"], m), device="cuda")
+    out = torch.empty(m, device="cuda")
+
+    def launch():
+        err = lib.glm_categorical_launch(yy.data_ptr(), xx.data_ptr(), aa.data_ptr(), bb.data_ptr(), part.data_ptr(),
+                                         out.data_ptr(), n, d, c, k, plan["wgs"], plan["mt"], plan["cpt"], plan["stages"],
+                                         plan["row_blocks"], torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"categorical copy: CUDA error {err}")
+
+    ms = cs.time_ms(launch, warmup=3, reps=20)
+    lib.prof_reset()
+    reps = 5
+    for _ in range(reps):
+        launch()
+    torch.cuda.synchronize()
+    tiles = reps * len(range(0, -(-n // 64), plan["row_blocks"]))
+    clocks = read_clocks(lib, cat_names, tiles)
+    print(json.dumps({"phase": "categorical_clocks", "shape": {"n": n, "d": d, "c": c, "k": k}, "plan": plan,
+                      "ms_with_clocks": ms, "clocks_per_tile_of_block_0": clocks,
+                      "total": sum(clocks.values())}), flush=True)
+
+    # the block kernel on a Schur block of the GP path, and the column-by-column one
+    _, schur = cs.gp_blocks(gp_regression.synthetic_data(cs.N_GP, seed=0)[0], get_config().cholesky_block_size, block_index=8)
+    cb, bsz, _ = schur.shape
+    u, w = torch.empty_like(schur), torch.empty_like(schur)
+    stamps = torch.zeros((cb, 5), dtype=torch.int64, device="cuda")
+    blk = ctypes.CDLL(os.path.join(OUT, "libblock_clocks.so"))
+    col = ctypes.CDLL(os.path.join(OUT, "libcolumnwise.so"))
+    blk.chol_inv_block_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    col.chol_inv_block_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    blk_ms = cs.time_ms(lambda: blk.chol_inv_block_launch(schur.data_ptr(), u.data_ptr(), w.data_ptr(), cb, bsz, stream),
+                        warmup=3, reps=20)
+    blk.prof_reset()
+    for _ in range(reps):
+        blk.chol_inv_block_launch(schur.data_ptr(), u.data_ptr(), w.data_ptr(), cb, bsz, stream)
+    torch.cuda.synchronize()
+    clocks = read_clocks(blk, blk_names, reps)
+    print(json.dumps({"phase": "block_clocks", "cb": cb, "b": bsz, "ms_with_clocks": blk_ms,
+                      "clocks_per_launch_of_block_0": clocks, "total": sum(clocks.values())}), flush=True)
+    col_ms = cs.time_ms(lambda: col.chol_inv_block_launch(schur.data_ptr(), u.data_ptr(), w.data_ptr(), stamps.data_ptr(),
+                                                          cb, bsz, stream), warmup=3, reps=20)
+    spans = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0)
+    total = float(spans.sum())
+    phases = ("load", "factor", "inverse", "store")
+    print(json.dumps({"phase": "columnwise_block_stamps", "cb": cb, "b": bsz, "ms": col_ms,
+                      "clocks": {p: float(v) for p, v in zip(phases, spans)},
+                      "share": {p: float(v) / total for p, v in zip(phases, spans)}}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()
