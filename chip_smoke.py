@@ -13,9 +13,10 @@ not 0 and no result line is printed):
 2. ``build``    compiles ``math_tpu_torch/csrc/*.cu`` from source with nvcc (one
    process per source, started together) and prints ``-Xptxas -v``'s
    registers, stack and spills of each kernel.
-3. ``kernels``  every family of the fused GLM kernel against its plain PyTorch
-   version (float64, on the GPU) at the main-path shape N=100,000, K=50, C=256
-   and at the ragged shape N=1537, K=7, C=5; the diagonal-block Cholesky kernel
+3. ``kernels``  every family of the fused GLM kernel (its tensor-core route,
+   which the wrapper's tile plan picks at these shapes) against its plain
+   PyTorch version (float64, on the GPU) at the main-path shape N=100,000,
+   K=50, C=256 and at the ragged shape N=1537, K=7, C=5; the diagonal-block Cholesky kernel
    against its plain version at the GP path's shape (32 blocks of 128 x 128
    taken from the 2000-point kernel matrix: first diagonal block and a later
    Schur complement) and ragged (5 blocks of 37 x 37, one not positive
@@ -26,17 +27,18 @@ not 0 and no result line is printed):
    after: chain-batched NUTS with pooled warmup on the 100,000 x 50 logistic
    GLM, 256 chains, float32, through ``run_pooled_chains``; then value and
    gradient through the public dispatchers of the three other GLM families at
-   the same width.  The bernoulli kernel must have been launched exactly once
-   per chain-batched gradient call of the sampler, the plain version never.
+   the same width.  The bernoulli tensor-core kernel must have been launched
+   exactly once per chain-batched gradient call of the sampler, the float32
+   kernels and the plain version never.
 5. ``ordinal_path`` and ``categorical_path``, each with the counts set to 0
    just before its sampler and read just after: 256-chain NUTS (150 + 50,
    ``max_depth=6``, float32) through ``run_pooled_chains`` on an ordinal
    regression (ordered-logistic GLM, 100,000 x 50, K=5 categories, dim 54) and
    on a multinomial regression (categorical-logit GLM, same X, K=5 classes
    with class 1 as reference, dim 204), both written with the public API
-   (``make_log_density``, transforms, densities).  The ordered / categorical
-   kernel must have been launched exactly once per gradient call and its plain
-   version never; divergences < 5%, finite draws, recovery of the generating
+   (``make_log_density``, transforms, densities).  The ordered (tensor-core)
+   / categorical kernel must have been launched exactly once per gradient call,
+   the float32 kernels and the plain version never; divergences < 5%, finite draws, recovery of the generating
    parameters, and ``logp`` and gradient at 8 final positions against the
    float64 ``dists`` density.
 6. ``gp_path``  again with the counts set to 0 just before and read just
@@ -56,7 +58,12 @@ with K=5, C=13 with K=7, which needs two column tiles and leaves columns of
 the tile idle, and C=5 with K=64, one chain per tile).  The categorical
 kernel's bound is counted for its route (three TF32 tensor-core products),
 with the float32-FMA bound beside it, and ``products_library_ms`` times its
-two products alone as float32 cuBLAS calls.  ``kernels_chol`` prints the block
+two products alone as float32 cuBLAS calls; so are kernel 1's four families
+and the ordered kernel (their products as three TF32 products, the core on the
+float32 units).  ``kernels_wide`` holds the float32 kernels, which take the
+shapes the tensor-core layout cannot hold (D > 63, or K > 8 categories),
+against the plain version, and ``refusals`` shows each GLM wrapper refusing a
+misaligned x with no launch and no plain call.  ``kernels_chol`` prints the block
 kernel's ``clock64`` stamps: how its time splits between factor and inverse.
 
 With ``--profile`` further phases trace a few sampling transitions of the
@@ -118,6 +125,14 @@ REPLACES = "math_tpu/ops/pallas_glm.py:112"
 K_CAT = 5
 CUTS_TRUE = (-2.5, -0.8, 0.8, 2.5)
 RAGGED_ORDERED = [(N_RAGGED, K_RAGGED, C_RAGGED, 3), (N_RAGGED, K_RAGGED, C_RAGGED, 5)]  # (n, d, c, k)
+# More ragged shapes of the tensor-core GLM kernels (128 chains a block, two
+# pairs of warpgroups of 64): C=200, the second column tile's second pair
+# holding 8 chains, D=33 not a multiple of 8; N=20,000, several row tiles a
+# block (the bulk-copy barrier's phases); the ordered kernel for every other
+# K it is compiled for, and the widest D whose block fits at K=5 and K=8.
+RAGGED_TC_FAMILY = [(4099, 33, 200), (20_000, K_RAGGED, C_RAGGED)]  # (n, d, c)
+RAGGED_TC_ORDERED = [(4099, 33, 200, 5), (20_000, K_RAGGED, C_RAGGED, 5)] + [
+    (N_RAGGED, K_RAGGED, C_RAGGED, k) for k in (2, 4, 6, 7, 8)] + [(N_RAGGED, 63, C_RAGGED, 5), (N_RAGGED, 56, C_RAGGED, 8)]
 # C=13, K=5: 65 of a tile's 80 columns; C=13, K=7: two column tiles of 11
 # chains, 77 of 80 columns; C=5, K=64: one chain per tile
 RAGGED_CATEGORICAL = RAGGED_ORDERED + [(N_RAGGED, K_RAGGED, 13, 5), (N_RAGGED, K_RAGGED, 13, 7), (N_RAGGED, K_RAGGED, C_RAGGED, 64)]
@@ -276,14 +291,36 @@ def compare(family, arrays, grad_atol):
     return errs, plain_errs
 
 
+def ragged_atol(n):
+    """The gradient atol of ``compare`` at ``n`` rows: 1e-3 up to N=3000, then scaled with N."""
+    return 1e-3 * max(1.0, n / 3000.0)
+
+
+def through_tensor_cores(kernel, label, run):
+    """``run()`` must launch the tensor-core kernel ``kernel`` once and nothing else."""
+    before = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA))
+    out = run()
+    want = dict(before[0], **{kernel: before[0][kernel] + 1})
+    require(glm_fused.LAUNCHES == want and glm_fused.LAUNCHES_FMA == before[1], f"{label}: not the tensor-core kernel alone")
+    return out
+
+
 def phase_kernels(x_main):
     entries = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, family in enumerate(glm_fused.FAMILIES):
         ragged = make_inputs(family, N_RAGGED, K_RAGGED, C_RAGGED, seed=100 + i, scale=0.2)
         ragged_errs, _ = compare(family, ragged, grad_atol=1e-3)
+        ragged_tc = {}
+        for j, (rn, rd, rc) in enumerate(RAGGED_TC_FAMILY):
+            require(glm_fused.glm_tile_plan(rn, rd, rc, sms)["route"] == "tensor_cores", (family, rn, rd, rc))
+            arrays = make_inputs(family, rn, rd, rc, seed=110 + 10 * i + j, scale=0.2)
+            ragged_tc[f"n{rn}_d{rd}_c{rc}"], _ = through_tensor_cores(
+                family, f"{family} n{rn} d{rd} c{rc}", lambda: compare(family, arrays, grad_atol=ragged_atol(rn)))
         main = make_inputs(family, N_MAIN, K_MAIN, C_MAIN, seed=200 + i, scale=0.1, x=x_main)
         grad_atol = 1e-3 * N_MAIN / 3000.0
         errs, plain_errs = compare(family, main, grad_atol=grad_atol)
+        split_errs = products_split_err(family, main)
 
         t32 = on_gpu(main, torch.float32)
         # the design matrix (20 MB) stays in the 50 MB L2 between launches, as
@@ -293,7 +330,13 @@ def phase_kernels(x_main):
         n, k, c = N_MAIN, K_MAIN, C_MAIN
         flops = 4.0 * n * k * c + float(CORE_OPS[family]) * n * c
         nbytes = 4.0 * (n * k + n + 2 * k * c + 3 * c + (2 * c if glm_fused.HAS_EXTRA[family] else 0))
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        bounds = tensor_core_bounds(n, k, c, CORE_OPS[family], flops, nbytes)
+        x1 = torch.cat([t32[1], torch.ones_like(t32[1][:, :1])], dim=1)  # [x, 1], made once
+        products_ms = time_ms(lambda: glm_products_library(t32[1], x1, t32[3]), warmup=2, reps=10)
+        plan = glm_fused.glm_tile_plan(n, k, c, torch.cuda.get_device_properties(0).multi_processor_count)
+        require(plan["route"] == "tensor_cores", f"{family}: the main shape must run on the tensor cores: {plan}")
+        require(bounds["bound_ms"] <= ms, f"{family}: {ms} ms beats its bound {bounds['bound_ms']} ms: the count is wrong")
+        del t32, x1
         entries.append({
             "name": f"glm_fused[{family}]",
             "route": "cuda",
@@ -304,17 +347,121 @@ def phase_kernels(x_main):
             "ms": ms,
             "kernel_ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **bounds,
             "library_ms": None,  # no one PyTorch call computes this function
+            "products_library_ms": products_ms,
+            "tile_plan": plan,
             "shape": {"n": n, "k": k, "c": c},
             "abs_err": errs,
             "plain_f32_abs_err": plain_errs,
-            "ragged_abs_err": ragged_errs,
-            "tolerance": {"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": grad_atol, "ragged_grad_atol": 1e-3},
+            "ragged_abs_err": {"n1537_d7_c5": ragged_errs, **ragged_tc},
+            "products_split_abs_err": split_errs,
+            "tolerance": {"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": grad_atol,
+                          "ragged_grad_atol": "1e-3 * max(1, N / 3000)"},
             "tflops": flops / (ms * 1e-3) / 1e12,
+            "tf32_tflops": 3.0 * 4.0 * n * k * c / (ms * 1e-3) / 1e12,
         })
     return entries
+
+
+def tf32_round(a):
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` (ties away from zero), on the int32 bits."""
+    return ((a.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32x3_exact_sums(a, b):
+    """``a @ b`` (float64 operands, rounded to float32 first) as three TF32
+    products ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` of the 3xTF32 split, summed
+    in float64: the split's error alone, without the tensor core's sums."""
+    def split(t):
+        t = t.float()
+        hi = tf32_round(t)
+        return hi.double(), tf32_round(t - hi).double()
+    ah, al = split(a)
+    bh, bl = split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def products_split_err(family, arrays):
+    """Where the tensor-core kernel's error comes from: the function in float64
+    with one of its two products taken by the 3xTF32 split
+    (``tf32x3_exact_sums``), against the float64 plain version.  ``eta``:
+    eta = x @ beta split, the core and ``[x, 1]^T theta'`` exact; ``xt_theta``:
+    eta and the core exact, ``[x, 1]^T theta'`` split.  A family whose
+    theta' moves fast with eta (poisson: exp(eta); normal: 1 / sigma^2) carries
+    product 1's error into its gradients."""
+    y, x, alpha, beta, extra = on_gpu(arrays, torch.float64)
+    e2 = extra[None, :] if extra is not None else None
+    x1 = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+
+    def parts(eta, product2):
+        lp, tp, de = glm_fused._core(family, eta, y[:, None], e2)
+        g = product2(x1.mT, tp)
+        return {"logp": lp.sum(0), "ga": g[-1], "gb": g[:-1], **({"ge": de.sum(0)} if de is not None else {})}
+
+    exact = lambda a, b: a @ b  # noqa: E731
+    want = parts(x @ beta + alpha, exact)
+    got = {"eta": parts(tf32x3_exact_sums(x, beta) + alpha, exact),
+           "xt_theta": parts(x @ beta + alpha, tf32x3_exact_sums)}
+    return {where: {k: float((v - want[k]).abs().max()) for k, v in out.items()} for where, out in got.items()}
+
+
+def tensor_core_bounds(n, d, c, core_ops, flops, nbytes):
+    """The least time of a GLM kernel whose two products run as three TF32
+    products on the tensor cores and whose core runs on the float32 units:
+    ``max(3*4*N*D*C / 495e12, core_ops*N*C / 67e12, bytes / 3.35e12)``, with
+    each term beside it and the bound of the same function by float32 FMAs."""
+    t_tensor = 3.0 * 4.0 * n * d * c / PEAK_TF32_FLOPS * 1e3
+    t_core = float(core_ops) * n * c / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = max(t_tensor, t_core, t_bytes)
+    return {"bound_ms": bound, "bound_by": "bytes" if t_bytes >= bound else "operations",
+            "bound_tensor_ms": t_tensor, "bound_core_ms": t_core, "bound_bytes_ms": t_bytes,
+            "bound_fp32_fma_ms": max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes)}
+
+
+def glm_products_library(x, x1, beta):
+    """The two products of a GLM kernel alone, ``x @ beta`` and ``[x, 1]^T
+    theta'`` (for the categorical kernel ``beta`` is the (D, C*K) matrix of
+    its beta), with ``x1 = [x, 1]``, as float32 cuBLAS calls with TF32 off
+    (timing only: a yardstick for the products, not for the function; the port
+    never calls it).  eta stands in for theta'."""
+    return x1.mT @ (x @ beta)
+
+
+# The shapes the tensor-core layout cannot hold go to the float32 kernels:
+# D > 63; for the ordered one also K > 8, and D 57-63 at K 6-8, whose block
+# does not fit shared memory.
+WIDE_FAMILY = (4099, 96, 70)  # (n, k, c)
+WIDE_ORDERED = [(4099, 70, 40, 5), (4099, 20, 40, 10), (4099, 63, 40, 8)]  # (n, d, c, k)
+
+
+def phase_kernels_wide():
+    """The float32 kernels (every family, and the ordered one) on shapes the
+    tensor-core kernels do not take, against the plain version (float64) with
+    the usual tolerances; the wrapper must have sent each there, by shape."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report = {}
+    n, k, c = WIDE_FAMILY
+    require(glm_fused.glm_tile_plan(n, k, c, sms)["route"] == "fma", "wide family shape: not the float32 route")
+    for i, family in enumerate(glm_fused.FAMILIES):
+        before = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA))
+        errs, _ = compare(family, make_inputs(family, n, k, c, seed=610 + i, scale=0.1), grad_atol=1e-3 * n / 3000.0)
+        require(glm_fused.LAUNCHES == before[0] and glm_fused.LAUNCHES_FMA == dict(before[1], **{family: before[1][family] + 1}),
+                f"wide {family} shape did not go through the float32 kernel alone")
+        report[f"{family}_n{n}_k{k}_c{c}"] = errs
+    for j, (n, d, c, kk) in enumerate(WIDE_ORDERED):
+        require(glm_fused.glm_tile_plan(n, d, c, sms, kcat=kk)["route"] == "fma", "wide ordered shape: not the float32 route")
+        before = (dict(glm_fused.LAUNCHES), glm_fused.LAUNCHES_FMA[glm_fused.ORDERED])
+        y, xw, *params = ordered_inputs(n, d, c, kk, seed=620 + j, scale=0.1)
+        errs, _ = compare_parts("glm_ordered_logistic wide", glm_fused.ordered_logistic_glm_parts,
+                                glm_fused.ordered_logistic_glm_parts_reference, y, [xw, *params], ("logp", "gbeta", "gcuts"),
+                                1e-3 * n / 3000.0)
+        require(glm_fused.LAUNCHES == before[0] and glm_fused.LAUNCHES_FMA[glm_fused.ORDERED] == before[1] + 1,
+                "wide ordered shape did not go through the float32 kernel alone")
+        report[f"ordered_n{n}_d{d}_c{c}_k{kk}"] = errs
+    emit("kernels_wide", abs_err=report)
+    return report
 
 
 def map_estimate_numpy(x, y):
@@ -441,18 +588,21 @@ def phase_main_path(x, y, beta_true, entries):
         x, y, beta_true, chains=C_MAIN, num_warmup=150, num_samples=50, max_depth=6, seed=0
     )
     launches_sampler = dict(glm_fused.LAUNCHES)
-    plain_calls = dict(glm_fused.PLAIN_CALLS)
     driven = drive_other_families(x_gpu)
     launches = dict(glm_fused.LAUNCHES)
+    launches_fma = dict(glm_fused.LAUNCHES_FMA)
+    plain_calls = dict(glm_fused.PLAIN_CALLS)
 
     require(launches_sampler["bernoulli_logit"] == res.n_grad_calls > 0, (launches_sampler, res.n_grad_calls))
+    require(all(v == 0 for v in launches_fma.values()), f"a float32 kernel ran on the main path: {launches_fma}")
     require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the main path: {plain_calls}")
     for e in entries:
         family = e["name"][len("glm_fused["):-1]
         e["launches"] = launches[family]
         require(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     others = check_other_families(x_gpu, driven)
-    emit("main_path", **report, kernel_launches=launches, plain_calls=plain_calls, other_families=others)
+    emit("main_path", **report, kernel_launches=launches, fma_kernel_launches=launches_fma, plain_calls=plain_calls,
+         other_families=others)
     return res
 
 
@@ -582,6 +732,14 @@ def phase_kernels_ordered_categorical(x_main):
         for j, (rn, rd, rc, rk) in enumerate(ragged_shapes):
             y, xr, *params = make(rn, rd, rc, rk, seed=500 + 10 * i + j, scale=0.2)
             ragged[f"n{rn}_d{rd}_c{rc}_k{rk}"], _ = compare_parts(f"{name} ragged", kernel, plain, y, [xr, *params], names, 1e-3)
+        if name == "glm_ordered_logistic":
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            for j, (rn, rd, rc, rk) in enumerate(RAGGED_TC_ORDERED):
+                require(glm_fused.glm_tile_plan(rn, rd, rc, sms, kcat=rk)["route"] == "tensor_cores", (name, rn, rd, rc, rk))
+                y, xr, *params = make(rn, rd, rc, rk, seed=540 + j, scale=0.2)
+                ragged[f"n{rn}_d{rd}_c{rc}_k{rk}"], _ = through_tensor_cores(
+                    glm_fused.ORDERED, f"{name} n{rn} d{rd} c{rc} k{rk}",
+                    lambda: compare_parts(f"{name} ragged", kernel, plain, y, [xr, *params], names, ragged_atol(rn)))
         y, _, *params = make(n, d, c, k, seed=520 + i, scale=0.1, x=x_main)
         errs, plain_errs = compare_parts(name, kernel, plain, y, [x_main, *params], names, grad_atol)
 
@@ -594,22 +752,34 @@ def phase_kernels_ordered_categorical(x_main):
             flops = 4.0 * n * d * c + float(ordered_core_ops(k)) * n * c
             # y, x, beta, cuts read; logp, gbeta, gcuts written
             nbytes = 4.0 * (n + n * d + d * c + (k - 1) * c) + 4.0 * (c + d * c + (k - 1) * c)
-            t_ops = flops / PEAK_FP32_FLOPS * 1e3
+            # the kernel's route: its products as three TF32 products on the
+            # tensor cores, the core on the float32 units
+            bounds = tensor_core_bounds(n, d, c, ordered_core_ops(k), flops, nbytes)
+            t_ops = max(bounds["bound_tensor_ms"], bounds["bound_core_ms"])
+            x1 = torch.cat([t32[1], torch.ones_like(t32[1][:, :1])], dim=1)  # [x, 1], made once
+            plan = glm_fused.glm_tile_plan(n, d, c, torch.cuda.get_device_properties(0).multi_processor_count, kcat=k)
+            require(plan["route"] == "tensor_cores", f"{name}: the main shape must run on the tensor cores: {plan}")
+            extra = {
+                **{key: v for key, v in bounds.items() if key not in ("bound_ms", "bound_by")},
+                "products_library_ms": time_ms(lambda: glm_products_library(t32[1], x1, t32[2]), warmup=2, reps=10),
+                "tile_plan": plan,
+                "tf32_tflops": 3.0 * 4.0 * n * d * c / (ms * 1e-3) / 1e12,
+            }
+            del x1
         else:
             flops = 4.0 * n * d * c * k + float(categorical_core_ops(k)) * n * c
             # y, x, alpha, beta read; logp, galpha, gbeta written
             nbytes = 4.0 * (n + n * d + c * k + c * d * k) + 4.0 * (c + c * k + c * d * k)
             # the kernel's route: its products as three TF32 products on the
-            # tensor cores, the core on the float32 units
-            t_tensor = 3.0 * 4.0 * n * d * c * k / PEAK_TF32_FLOPS * 1e3
-            t_core = float(categorical_core_ops(k)) * n * c / PEAK_FP32_FLOPS * 1e3
-            t_ops = max(t_tensor, t_core)
+            # tensor cores (as many as a GLM of D*K columns), the core on the
+            # float32 units
+            bounds = tensor_core_bounds(n, d * k, c, categorical_core_ops(k), flops, nbytes)
+            t_ops = max(bounds["bound_tensor_ms"], bounds["bound_core_ms"])
             bmat = t32[3].permute(1, 0, 2).reshape(d, c * k)  # (D, C*K), column c*K + k, made once
             x1 = torch.cat([t32[1], torch.ones_like(t32[1][:, :1])], dim=1)  # [x, 1], made once
             extra = {
-                "bound_tensor_ms": t_tensor, "bound_core_ms": t_core,
-                "bound_fp32_fma_ms": max(flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3),
-                "products_library_ms": time_ms(lambda: categorical_products_library(t32[1], x1, bmat), warmup=2, reps=10),
+                **{key: v for key, v in bounds.items() if key not in ("bound_ms", "bound_by")},
+                "products_library_ms": time_ms(lambda: glm_products_library(t32[1], x1, bmat), warmup=2, reps=10),
                 "tile_plan": glm_fused.categorical_tile_plan(n, d, c, k, torch.cuda.get_device_properties(0).multi_processor_count),
                 "tf32_tflops": 3.0 * 4.0 * n * d * c * k / (ms * 1e-3) / 1e12,
             }
@@ -632,50 +802,58 @@ def phase_kernels_ordered_categorical(x_main):
             "abs_err": errs,
             "plain_f32_abs_err": plain_errs,
             "ragged_abs_err": ragged,
-            "tolerance": {"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": grad_atol, "ragged_grad_atol": 1e-3},
+            "tolerance": {"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": grad_atol,
+                          "ragged_grad_atol": "1e-3 * max(1, N / 3000)"},
             "tflops": flops / (ms * 1e-3) / 1e12,
             **extra,
         })
     return entries
 
 
-def categorical_products_library(x, x1, bmat):
-    """The categorical kernel's two products alone, ``x @ B`` and ``[x, 1]^T
-    Theta``, with ``B`` the (D, C*K) matrix of beta and ``x1 = [x, 1]``, as
-    float32 cuBLAS calls with TF32 off (timing only: a yardstick for the
-    products, not for the function, and the port never calls it).  eta stands
-    in for Theta."""
-    return x1.mT @ (x @ bmat)
+def misaligned(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
 
 
-def check_categorical_refusals():
-    """On a CUDA tensor the categorical wrapper launches its kernel or raises:
-    an x that is not 16-byte aligned (its row tiles are bulk copies), a D no
-    instantiation of the kernel takes and K > 64 each raise ValueError, and
-    neither the kernel nor the plain version runs."""
-    cat = glm_fused.CATEGORICAL
-    before = (glm_fused.LAUNCHES[cat], glm_fused.PLAIN_CALLS[cat])
+def check_refusals():
+    """On a CUDA tensor each GLM wrapper launches its kernel or raises.  The
+    categorical one refuses an x that is not 16-byte aligned (its row tiles
+    are bulk copies), a D no instantiation of the kernel takes and K > 64;
+    kernel 1 (bernoulli-logit) and the ordered kernel refuse a misaligned x at
+    a shape of the tensor-core route.  Each raises ValueError, and no kernel
+    and no plain version runs."""
+    counts = lambda: (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA), dict(glm_fused.PLAIN_CALLS))  # noqa: E731
+    before = counts()
     n, d, c, k = 256, 7, 5, 5
 
-    def inputs(dd, kk, misaligned=False):
+    def cat_inputs(dd, kk, bad=False):
         y, *floats = categorical_inputs(n, dd, c, kk, seed=9, scale=0.2)
         y, x, alpha, beta = with_y(y, floats, torch.float32)
-        if misaligned:
-            buf = torch.empty(n * dd + 1, device="cuda")
-            buf[1:] = x.reshape(-1)
-            x = buf[1:].view(n, dd)  # contiguous, 4 bytes past a 16-byte boundary
-        return y, x, alpha, beta
+        return y, misaligned(x) if bad else x, alpha, beta
 
-    cases = {"misaligned_x": inputs(d, k, misaligned=True), "d_400": inputs(400, k), "k_65": inputs(d, 65)}
+    fam = on_gpu(make_inputs("bernoulli_logit", n, d, c, seed=9, scale=0.2), torch.float32)
+    y_o, *floats_o = ordered_inputs(n, d, c, k, seed=9, scale=0.2)
+    y_o, x_o, beta_o, cuts_o = with_y(y_o, floats_o, torch.float32)
+    cases = {
+        "categorical": {"misaligned_x": (glm_fused.categorical_logit_glm_parts, cat_inputs(d, k, bad=True)),
+                        "d_400": (glm_fused.categorical_logit_glm_parts, cat_inputs(400, k)),
+                        "k_65": (glm_fused.categorical_logit_glm_parts, cat_inputs(d, 65))},
+        "bernoulli_logit": {"misaligned_x": (lambda *a: glm_fused.glm_fused_parts("bernoulli_logit", *a),
+                                             (fam[0], misaligned(fam[1]), fam[2], fam[3]))},
+        "ordered_logistic": {"misaligned_x": (glm_fused.ordered_logistic_glm_parts, (y_o, misaligned(x_o), beta_o, cuts_o))},
+    }
     refused = {}
-    for label, args in cases.items():
-        try:
-            glm_fused.categorical_logit_glm_parts(*args)
-        except ValueError as e:
-            refused[label] = str(e)
-    require(sorted(refused) == sorted(cases), f"categorical wrapper did not refuse {sorted(set(cases) - set(refused))}")
-    require((glm_fused.LAUNCHES[cat], glm_fused.PLAIN_CALLS[cat]) == before, "a refused call launched or fell back")
-    emit("refusals", categorical=refused)
+    for kernel, labelled in cases.items():
+        for label, (fn, args) in labelled.items():
+            try:
+                fn(*args)
+            except ValueError as e:
+                refused.setdefault(kernel, {})[label] = str(e)
+        require(sorted(refused.get(kernel, {})) == sorted(labelled), f"{kernel} wrapper did not refuse {sorted(labelled)}")
+    require(counts() == before, "a refused call launched or fell back")
+    emit("refusals", **refused)
 
 
 def ordinal_data(x, seed=1):
@@ -838,9 +1016,11 @@ def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
         device="cuda", dtype=torch.float32, tol=tol,
     )
     launches = dict(glm_fused.LAUNCHES)
+    launches_fma = dict(glm_fused.LAUNCHES_FMA)
     plain_calls = dict(glm_fused.PLAIN_CALLS)
     require(launches[family] == res.n_grad_calls > 0, f"{launches[family]} launches for {res.n_grad_calls} gradient calls")
     require(all(v == 0 for f, v in launches.items() if f != family), f"another kernel ran: {launches}")
+    require(all(v == 0 for v in launches_fma.values()), f"a float32 kernel ran on the {label}: {launches_fma}")
     require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the {label}: {plain_calls}")
     entry["launches"] = launches[family]
     z_final = res.position[:8, -1, :].contiguous()
@@ -852,7 +1032,8 @@ def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
                "max_abs_mean_err_vs_map": float((draws[name].double().mean((0, 1)) - v).abs().max())}
         for name, v in theta_map.items()
     }
-    emit(label, **report, kernel_launches=launches[family], plain_calls=plain_calls, vs_float64_at_8_final_positions=check,
+    emit(label, **report, kernel_launches=launches[family], fma_kernel_launches=launches_fma, plain_calls=plain_calls,
+         vs_float64_at_8_final_positions=check,
          float64_map=map_report)
     return res, model, (xt, yt)
 
@@ -1222,7 +1403,8 @@ def main():
     entries = phase_kernels(x)
     chol_entry = phase_kernels_chol(gp_regression.synthetic_data(N_GP, seed=0)[0])
     ord_entry, cat_entry = phase_kernels_ordered_categorical(x)
-    check_categorical_refusals()
+    phase_kernels_wide()
+    check_refusals()
     res = phase_main_path(x, y, beta_true, entries)
     if profiling:
         args = (torch.tensor(x, device="cuda"), torch.tensor(y, device="cuda"))

@@ -77,11 +77,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "tf32x3.cuh"
+#include "glm_common.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using glm_common::request_row_tile;
 
 constexpr int TM = 64;        // rows per tile
 
@@ -108,16 +109,6 @@ __host__ __device__ inline Layout layout_of(int ncols_, int d, int cpt, int stag
     L.bars = at;    at += up128((size_t)stages * 8);
     L.total = at;
     return L;
-}
-
-// out[i] = sum over blocks of partials[b][i], in block order, in double.
-__global__ void reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                                       int row_blocks, long long m) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m) return;
-    double s = 0.0;
-    for (int b = 0; b < row_blocks; ++b) s += (double)partials[(size_t)b * m + i];
-    out[i] = (float)s;
 }
 
 // hi/lo fragments of A for one k8 step: a[0..3] = A[row(e)][col(e)] with the
@@ -303,7 +294,6 @@ glm_categorical_kernel(const int* __restrict__ y, const float* __restrict__ x,
     const int c0 = blockIdx.y * cpt;  // first chain of the tile
     const int n_tiles = (n + TM - 1) / TM;
     const int full_tiles = n / TM;  // tiles 0 .. full_tiles-1 hold 64 rows
-    const uint32_t tile_bytes = (uint32_t)TM * d * 4;
 
     if (tid == 0) {
         for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
@@ -314,10 +304,7 @@ glm_categorical_kernel(const int* __restrict__ y, const float* __restrict__ x,
         const int tile = blockIdx.x + j * gridDim.x;
         if (tile >= full_tiles) return;  // a ragged tile is loaded by plain loads
         const int s = j % stages;
-        fence_proxy_async();
-        mbar_expect_bytes(&bars[s], tile_bytes + TM * 4);
-        bulk_copy(xring + (size_t)s * TM * d, x + (size_t)tile * TM * d, tile_bytes, &bars[s]);
-        bulk_copy(yring + s * TM, y + (size_t)tile * TM, TM * 4, &bars[s]);
+        request_row_tile(xring + (size_t)s * TM * d, yring + s * TM, x, y, tile, d, &bars[s]);
     };
     __syncthreads();  // the barriers are initialised
     if (tid == 0) {
@@ -502,6 +489,5 @@ extern "C" int glm_categorical_launch(const void* y, const void* x, const void* 
 #undef GLM_CATEGORICAL_CASE
     if (err != cudaSuccess) return (int)err;
     const long long m = (long long)c * (1 + kcls + (long long)d * kcls);
-    reduce_partials_kernel<<<(unsigned)((m + 255) / 256), 256, 0, stream>>>(pf, static_cast<float*>(out), row_blocks, m);
-    return (int)cudaGetLastError();
+    return (int)glm_common::reduce_partials(pf, out, row_blocks, m, stream);
 }

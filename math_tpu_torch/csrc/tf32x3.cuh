@@ -1,7 +1,9 @@
 // Float32-accurate products on Hopper's tensor cores: the 3xTF32 split, the
-// wgmma wrapper that takes A from registers, the shared-memory layout and
-// descriptor of a K-major B operand, and the mbarrier / bulk-copy pieces that
-// stage a tile.  Shared by the GLM kernels of this directory; sm_90a only.
+// wgmma wrappers (m64n40k8 with A from registers; m64n64k8 with A from
+// registers or from shared memory; m64n32k8 with A from shared memory), the
+// shared-memory layout and descriptor of a K-major operand, and the mbarrier
+// / bulk-copy pieces that stage a tile.  Shared by the GLM kernels of this
+// directory; sm_90a only.
 //
 // The split.  a = hi + lo with hi = tf32(a) and lo = tf32(a - hi), both
 // rounded to nearest (cvt.rna).  Then a*b ~ lo_a*hi_b + hi_a*lo_b + hi_a*hi_b,
@@ -21,7 +23,9 @@
 //    layout without swizzle: 8 x 4 "core matrices" of 128 contiguous bytes,
 //    the K-direction core matrices of one 8-row group next to each other
 //    (leading byte offset 128), the 8-row groups kp*32 bytes apart (stride
-//    byte offset), where kp is the padded K extent of the tile.
+//    byte offset), where kp is the padded K extent of the tile.  An A read
+//    from shared memory (M x K, K contiguous) takes the same layout and
+//    descriptor, its 8-row groups along M.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,9 +74,10 @@ __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_grou
 
 // Keeps the compiler from moving accesses of an accumulator across the
 // asynchronous product.
-__device__ __forceinline__ void fence_regs(float (&d)[20]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-    for (int i = 0; i < 20; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 40) += A (64 x 8, registers) * B (8 x 40, descriptor), TF32 in, float32 out.
@@ -98,6 +103,72 @@ __device__ __forceinline__ void mma3_n40k8(float (&d)[20], const uint32_t (&a_hi
     mma_n40k8(d, a_hi, desc_b_lo);
     mma_n40k8(d, a_hi, desc_b_hi);
 }
+
+// --- m64n64k8, m64n32k8: the transposed GLM products of glm_fused.cu -------
+
+#define TF32X3_D32                                                                                                 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),   \
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),    \
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define TF32X3_D32_LIST                                                                                            \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "   \
+    "%23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+
+// d (64 x 64) += A (64 x 8, registers) * B (8 x 64, descriptor).  The
+// accumulator: d[4j+0] = D[16w+g][8j+2t], d[4j+1] = D[16w+g][8j+2t+1],
+// d[4j+2] = D[16w+g+8][8j+2t], d[4j+3] = D[16w+g+8][8j+2t+1], j = 0..7.
+__device__ __forceinline__ void mma_n64k8_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " TF32X3_D32_LIST
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : TF32X3_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 8, descriptor of a K-major tile) * B (8 x 64, descriptor).
+__device__ __forceinline__ void mma_n64k8_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " TF32X3_D32_LIST
+        "%32, %33, p, 1, 1;\n"
+        "}\n"
+        : TF32X3_D32
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 32) += A (64 x 8, descriptor of a K-major tile) * B (8 x 32,
+// descriptor); the accumulator as above, j = 0..3.
+__device__ __forceinline__ void mma_n32k8_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+          "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+#undef TF32X3_D32
+#undef TF32X3_D32_LIST
+
+// Position, in its group of 8, at which a K-major B holds row r of a product
+// whose A is the accumulator of an earlier m64nNk8 product (its columns now
+// the K of the second): the accumulator register d[4j+0] (column 8j+2t) is
+// the A fragment's a[0] (column 8j+t), d[4j+1] (column 8j+2t+1) is a[2]
+// (column 8j+t+4), and likewise d[4j+2] -> a[1], d[4j+3] -> a[3].  So row 2t
+// of each group of 8 sits at position t and row 2t+1 at position t+4.
+__device__ __forceinline__ int k8_position(int r) { return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2); }
 
 // --- staging: mbarrier and 1-D bulk copy ------------------------------------
 

@@ -1,17 +1,22 @@
 """Fused GLM log-prob + parameter gradients for a batch of chains.
 
 Counterpart: ``math_tpu/ops/pallas_glm.py`` (its three kernels, the AD wiring
-and the six ``*_chains`` dispatchers).  Three hand-written CUDA kernels in two
+and the six ``*_chains`` dispatchers).  Hand-written CUDA kernels in two
 sources:
 
-- ``glm_fused_kernel`` (``_glm_kernel``), ``csrc/glm_fused.cu``: four families
-  with one linear predictor per chain;
-- ``glm_ordered_kernel`` (``_ordered_kernel``), the same source: the
-  ordered-logistic GLM, ``logp``, ``gbeta``, ``gcuts``;
+- ``_glm_kernel`` (four families with one linear predictor per chain) and
+  ``_ordered_kernel`` (the ordered-logistic GLM, ``logp``, ``gbeta``,
+  ``gcuts``), ``csrc/glm_fused.cu``, each by two routes: ``glm_tc_kernel``,
+  both products on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``), taken
+  transposed with the chains as the rows of the product, for ``D <= 63`` (and
+  ``K <= 8`` categories); ``glm_fused_kernel`` / ``glm_ordered_kernel``,
+  float32 FMAs, for the wider shapes (and the ordered ``D`` 57-63 at ``K``
+  6-8, whose block does not fit shared memory).  ``glm_tile_plan`` picks the route and
+  the tile by shape alone;
 - ``glm_categorical_kernel`` (``_categorical_kernel``),
   ``csrc/glm_categorical.cu``: the categorical-logit GLM, ``logp``,
-  ``galpha``, ``gbeta``, its two products on the tensor cores in 3xTF32
-  (``csrc/tf32x3.cuh``); ``categorical_tile_plan`` picks its tile.
+  ``galpha``, ``gbeta``, its two products on the tensor cores in 3xTF32;
+  ``categorical_tile_plan`` picks its tile.
 
 For the four families one pass over ``x`` gives, per chain,
 
@@ -27,8 +32,9 @@ Rules: on a CUDA tensor each ``*_parts`` wrapper launches its kernel or
 raises; it takes its plain version (``*_parts_reference``) only for tensors
 that lie on the CPU.  There are no dispatch thresholds: those of the JAX
 package were measured on another chip and are not carried over.  ``LAUNCHES``
-counts kernel launches per family and ``PLAIN_CALLS`` calls of the plain
-version, so a run can show which one it went through.
+counts launches of the tensor-core kernels per family (and the categorical
+kernel's), ``LAUNCHES_FMA`` those of the float32 kernels, ``PLAIN_CALLS`` calls
+of the plain version, so a run can show which one it went through.
 
 Differentiation (ref: pallas_glm.py:219-237): at first order each
 ``autograd.Function`` reads the gradients off the partials its forward pass
@@ -55,19 +61,28 @@ HAS_EXTRA = {
 }
 _FAMILY_CODE = {f: i for i, f in enumerate(FAMILIES)}
 ORDERED = "ordered_logistic"
+ORDERED_KIND = 4  # the ordered kernel's kind beside the families' codes in glm_tc_launch
 CATEGORICAL = "categorical_logit"
 KERNEL_FAMILIES = FAMILIES + (ORDERED, CATEGORICAL)
 
 LAUNCHES = {f: 0 for f in KERNEL_FAMILIES}
+LAUNCHES_FMA = {f: 0 for f in FAMILIES + (ORDERED,)}
 PLAIN_CALLS = {f: 0 for f in KERNEL_FAMILIES}
 
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one block may use on sm_90
+SM_SMEM_BYTES = 233_472  # shared memory of one SM on sm_90; each resident block also takes 1 KB
+
+
+def _up128(b):
+    return (b + 127) // 128 * 128
 
 
 def reset_counts():
     for f in KERNEL_FAMILIES:
         LAUNCHES[f] = 0
         PLAIN_CALLS[f] = 0
+    for f in LAUNCHES_FMA:
+        LAUNCHES_FMA[f] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +152,16 @@ def _library():
         lib.glm_ordered_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.glm_ordered_smem_bytes.restype = ctypes.c_longlong
         lib.glm_ordered_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.glm_tc_launch.restype = ctypes.c_int
+        lib.glm_tc_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.glm_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.glm_tc_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.glm_tc_chains_per_block.restype = ctypes.c_int
+        lib.glm_tc_chains_per_block.argtypes = []
+        lib.glm_tc_max_d.restype = ctypes.c_int
+        lib.glm_tc_max_d.argtypes = []
+        lib.glm_tc_max_categories.restype = ctypes.c_int
+        lib.glm_tc_max_categories.argtypes = []
         _lib = lib
     return _lib
 
@@ -177,13 +202,90 @@ def _check_cuda_layout(who, y, floats):
             raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def row_blocks_for(n, c, device):
-    """Blocks along the rows of kernels 1 and 2: about two blocks per SM over
-    all 64-chain tiles (the categorical kernel's come from ``categorical_tile_plan``)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def row_blocks_for(n, c, sms):
+    """Blocks along the rows of the float32 kernels 1 and 2: about two blocks
+    per SM over all 64-chain tiles."""
     chain_tiles = (c + 63) // 64
     n_tiles = (n + 63) // 64
     return max(1, min(n_tiles, (2 * sms + chain_tiles - 1) // chain_tiles))
+
+
+# The tensor-core kernels (glm_tc_kernel in csrc/glm_fused.cu): the widest x
+# ([x, 1] in one n64 product), the most categories of the ordered kernel
+# (compiled per K), and the chains of one block (two pairs of warpgroups, 64
+# chains a pair, the rows of a tile split between a pair's two warpgroups).
+TC_MAX_D = 63
+TC_MAX_CATEGORIES = 8
+TC_CHAINS = 128
+GSUM_STRIDE = 33  # floats of a thread's gradient sums in shared memory
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def glm_tc_smem_bytes(d, kcat=0):
+    """Bytes of shared memory one block of the tensor-core kernel needs (its
+    ``tc_layout_of``): beta hi/lo (128 chains x Dp), the x tile as product 1's
+    B hi/lo (64 x Dp) and as product 2's B hi/lo (64 x 64), the raw x tile, y
+    raw and staged, the extended cut tile and its log1m_exp terms (``kcat`` >
+    0: the ordered kernel), the double sums per chain and half tile, the
+    gradient sums of every thread (512 threads), the barrier."""
+    dp = (d + 7) // 8 * 8
+    chains = TC_CHAINS
+    parts = (chains * dp * 4, chains * dp * 4, 64 * dp * 4, 64 * dp * 4, 64 * 64 * 4, 64 * 64 * 4, 64 * d * 4,
+             64 * 4, 64 * 4, chains * (2 * kcat + 1) * 4 if kcat else 0, 2 * chains * (kcat if kcat else 2) * 8,
+             4 * chains * GSUM_STRIDE * 4, 8)
+    return sum(_up128(p) for p in parts)
+
+
+def glm_tile_plan(n, d, c, sms, kcat=None):
+    """Route and tile of kernel 1 (``kcat`` None) or of the ordered kernel
+    (``kcat`` = K categories) for ``x (n, d)`` and ``c`` chains on a card with
+    ``sms`` SMs, decided by shape alone.  ``route`` is ``"tensor_cores"``
+    (``glm_tc_kernel``) where ``d <= TC_MAX_D``, ``kcat <= TC_MAX_CATEGORIES``
+    and the block fits shared memory, else ``"fma"`` (the float32 kernel).
+    For the tensor cores: ``TC_CHAINS`` chains a block, ``smem``,
+    ``column_tiles`` and ``row_blocks`` (one block an SM, as the register cap
+    of 512 threads allows; one wave over the card)."""
+    n_tiles = -(-n // 64)
+    if d <= TC_MAX_D and (kcat is None or kcat <= TC_MAX_CATEGORIES):
+        smem = glm_tc_smem_bytes(d, kcat or 0)
+        if smem <= MAX_SMEM_BYTES:
+            tiles = -(-c // TC_CHAINS)
+            return {"route": "tensor_cores", "chains_per_block": TC_CHAINS, "column_tiles": tiles, "smem": smem,
+                    "row_blocks": max(1, min(n_tiles, sms // tiles))}
+    return {"route": "fma", "chains_per_block": 64, "column_tiles": -(-c // 64), "row_blocks": row_blocks_for(n, c, sms)}
+
+
+def _check_aligned(who, tensors):
+    """The tensor-core kernels (here and the categorical one) copy whole row
+    tiles of x and y by 1-D bulk copies."""
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must be 16-byte aligned (its row tiles are bulk copies)")
+
+
+def _launch_tc(who, kind, kcat, plan, y, x, alpha, beta, extra, rows):
+    """One launch of ``glm_tc_kernel`` by ``plan``; returns ``out (rows, c)``."""
+    lib = _library()
+    n, d = x.shape
+    c = beta.shape[1]
+    if lib.glm_tc_smem_bytes(d, kcat) != plan["smem"] or lib.glm_tc_max_d() != TC_MAX_D \
+            or lib.glm_tc_max_categories() != TC_MAX_CATEGORIES or lib.glm_tc_chains_per_block() != TC_CHAINS:
+        raise RuntimeError(f"{who}: the tile plan disagrees with the kernel's layout")
+    rb = plan["row_blocks"]
+    with torch.cuda.device(x.device):
+        partials = torch.empty((rb, rows, c), dtype=torch.float32, device=x.device)
+        out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
+        err = lib.glm_tc_launch(
+            kind, kcat, y.data_ptr(), x.data_ptr(), None if alpha is None else alpha.data_ptr(), beta.data_ptr(),
+            None if extra is None else extra.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            n, d, c, rb, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{who}: tensor-core kernel launch failed: CUDA error {err}")
+    return out
 
 
 def glm_fused_parts(family, y, x, alpha, beta, extra=None):
@@ -221,10 +323,17 @@ def glm_fused_parts(family, y, x, alpha, beta, extra=None):
     if n < 1 or c < 1 or k < 1:
         raise ValueError(f"glm_fused_parts: need N, K, C >= 1; got {n}, {k}, {c}")
 
+    plan = glm_tile_plan(n, k, c, _sm_count(x.device))
+    if plan["route"] == "tensor_cores":
+        _check_aligned("glm_fused_parts", [("x", x), ("y", y)])
+        out = _launch_tc("glm_fused_parts", _FAMILY_CODE[family], 0, plan, y, x, alpha, beta,
+                         extra if has_extra else None, k + 3)
+        LAUNCHES[family] += 1
+        return out[0], out[1], out[3:], (out[2] if has_extra else None)
     lib = _library()
     if lib.glm_fused_smem_bytes(k) > MAX_SMEM_BYTES:
         raise ValueError(f"glm_fused_parts: K={k} columns need more shared memory than a block has")
-    rb = row_blocks_for(n, c, x.device)
+    rb = plan["row_blocks"]
     with torch.cuda.device(x.device):
         partials = torch.empty((rb, k + 3, c), dtype=torch.float32, device=x.device)
         out = torch.empty((k + 3, c), dtype=torch.float32, device=x.device)
@@ -235,7 +344,7 @@ def glm_fused_parts(family, y, x, alpha, beta, extra=None):
         )
     if err != 0:
         raise RuntimeError(f"glm_fused kernel launch failed for {family}: CUDA error {err}")
-    LAUNCHES[family] += 1
+    LAUNCHES_FMA[family] += 1
     return out[0], out[1], out[3:], (out[2] if has_extra else None)
 
 
@@ -417,11 +526,17 @@ def ordered_logistic_glm_parts(y, x, beta, cuts):
     if n < 1 or d < 1 or c < 1:
         raise ValueError(f"{who}: need N, D, C >= 1; got {n}, {d}, {c}")
 
+    plan = glm_tile_plan(n, d, c, _sm_count(x.device), kcat=kc + 1)
+    rows = d + kc + 1
+    if plan["route"] == "tensor_cores":
+        _check_aligned(who, [("x", x), ("y", y)])
+        out = _launch_tc(who, ORDERED_KIND, kc + 1, plan, y, x, None, beta, cuts, rows)
+        LAUNCHES[ORDERED] += 1
+        return out[0], out[1 : 1 + d], out[1 + d :]
     lib = _library()
     if lib.glm_ordered_smem_bytes(d, kc + 1) > MAX_SMEM_BYTES:
         raise ValueError(f"{who}: D={d} columns and K={kc + 1} categories need more shared memory than a block has")
-    rb = row_blocks_for(n, c, x.device)
-    rows = d + kc + 1
+    rb = plan["row_blocks"]
     with torch.cuda.device(x.device):
         partials = torch.empty((rb, rows, c), dtype=torch.float32, device=x.device)
         out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
@@ -431,7 +546,7 @@ def ordered_logistic_glm_parts(y, x, beta, cuts):
         )
     if err != 0:
         raise RuntimeError(f"glm_ordered kernel launch failed: CUDA error {err}")
-    LAUNCHES[ORDERED] += 1
+    LAUNCHES_FMA[ORDERED] += 1
     return out[0], out[1 : 1 + d], out[1 + d :]
 
 
@@ -481,13 +596,6 @@ MAX_CLASSES = 64  # one chain's classes share a column tile of the kernel
 # (mt = ceil((D + 1) / 64)).  The same set as GLM_CATEGORICAL_INSTANCES in
 # csrc/glm_categorical.cu.
 CATEGORICAL_INSTANCES = ((2, 1), (2, 2), (2, 3), (2, 4), (1, 4), (1, 5))
-SM_SMEM_BYTES = 233_472  # shared memory of one SM on sm_90; each resident block also takes 1 KB
-
-
-def _up128(b):
-    return (b + 127) // 128 * 128
-
-
 def categorical_smem_bytes(n_cols, d, cpt, stages):
     """Bytes of shared memory one block of the categorical kernel needs (its
     ``layout_of``): beta hi/lo (n_cols x Dp), theta' hi/lo (n_cols x 64), a
@@ -587,9 +695,7 @@ def categorical_logit_glm_parts(y, x, alpha, beta):
     if k > MAX_CLASSES:
         raise ValueError(f"{who}: K={k} classes; the kernel takes at most {MAX_CLASSES} (one chain's classes per column tile)")
 
-    for name, t in (("x", x), ("y", y)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{who}: {name} must be 16-byte aligned (its row tiles are bulk copies)")
+    _check_aligned(who, [("x", x), ("y", y)])
     plan = categorical_tile_plan(n, d, c, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
     if plan is None:
         raise ValueError(f"{who}: D={d} columns with K={k} classes need more shared memory or registers than a block has")

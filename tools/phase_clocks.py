@@ -15,6 +15,15 @@ It builds, next to the port's kernels (``get_config().kernel_build_dir``):
   eta to shared memory, softmax, lp sums, product 2, the barrier at the top of
   the next tile), run at the categorical path's shape (N=100,000, D=50,
   C=256, K=5); printed as clocks per tile;
+- a copy of ``csrc/glm_fused.cu`` with a clock read by thread 0 of block
+  (0, 0) between the phases of each row tile of the tensor-core kernels
+  (the barrier at the top of the tile, wait for the tile, the x layouts,
+  product 1, the core, the tile sums, product 2), run for kernel 1
+  (bernoulli-logit, and normal-id, whose core is the cheapest) at the main
+  path's shape (N=100,000, D=50, C=256) and for the ordered kernel (K=5) at
+  the ordinal path's; the time of each beside the float32-FMA kernel's on
+  the same inputs, there and at 32 chains (a block of 128 chains then holds
+  one pair of warpgroups with no chains);
 - a copy of ``csrc/chol_inv_block.cu`` with a clock read by thread 0 of block
   0 between its stages, run on a Schur block of the GP path (Cb=32, B=128);
   printed as clocks per launch;
@@ -66,6 +75,17 @@ CATEGORICAL = [
     ("        // --- product 2:", "lp_sums"),
     ("        fence_proxy_async();  // theta' is written again", "product_2"),
 ]
+GLM_TC = [
+    ("    for (int it = 0;; ++it) {\n        const int tile = blockIdx.x + it * gridDim.x;\n        if (tile >= n_tiles) break;\n"
+     "        const int r0 = tile * 64;", None),
+    ("        if (tile < full_tiles) {\n            mbar_wait(bar, (uint32_t)(it & 1));", "top_barrier"),
+    ("        // --- the x tile into both layouts", "wait_for_tile"),
+    ("        // --- product 1: eta^T", "x_layouts"),
+    ("        // --- the core on the accumulator", "product_1"),
+    ("        // the tile's sums per chain and half", "core"),
+    ("        // --- product 2: [gb; ga]^T", "tile_sums"),
+    ("        fence_proxy_async();  // the x layouts are written again", "product_2"),
+]
 BLOCK = [
     ("    // --- factor: d = U^T U, by panels of P columns", None),
     ("        const int t0 = k0 + kb;  // first trailing row / column", "diagonal_blocks"),
@@ -116,6 +136,86 @@ def read_clocks(lib, names, per):
     return {name: buf[i] / per for i, name in enumerate(names)}
 
 
+def glm_tc_clocks(names, reps=5):
+    """Kernel 1 (bernoulli-logit, and normal-id, the family with the cheapest
+    core) and the ordered kernel (K=5) on the tensor cores at the main shape:
+    the stamped copy's time and the float32-FMA kernel's on the same inputs,
+    the clocks per tile of block (0, 0); then, at 32 chains, the port's
+    tensor-core kernel (through its wrapper) against the float32-FMA kernel."""
+    n, d, c, k = cs.N_MAIN, cs.K_MAIN, cs.C_MAIN, cs.K_CAT
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = glm_logistic.synthetic_data(n, d)[0]
+    fam = cs.on_gpu(cs.make_inputs("bernoulli_logit", n, d, c, seed=200, scale=0.1, x=x), torch.float32)
+    y_o, *floats_o = cs.ordered_inputs(n, d, c, k, seed=521, scale=0.1, x=x)
+    y_o, x_o, beta_o, cuts_o = cs.with_y(y_o, floats_o, torch.float32)
+    lib = ctypes.CDLL(os.path.join(OUT, "libglm_tc_clocks.so"))
+    main_lib = glm_fused._library()
+    lib.glm_tc_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    nid = cs.on_gpu(cs.make_inputs("normal_id", n, d, c, seed=202, scale=0.1, x=x), torch.float32)
+    kernels = {
+        "bernoulli_logit": (0, 0, fam[0], fam[1], fam[2], fam[3], None, d + 3, None),
+        "normal_id": (2, 0, nid[0], nid[1], nid[2], nid[3], nid[4], d + 3, None),
+        "ordered_logistic": (glm_fused.ORDERED_KIND, k, y_o, x_o, None, beta_o, cuts_o, d + k, k),
+    }
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fma_ms(kind, kcat, yy, xx, aa, bb, ee, rows, cc):
+        """The float32-FMA kernel (the design the tensor-core one replaced on
+        these shapes; the wider ones still take it) on the first ``cc`` chains."""
+        rb = glm_fused.row_blocks_for(n, cc, sms)
+        part, out = torch.empty((rb, rows, cc), device="cuda"), torch.empty((rows, cc), device="cuda")
+        if kcat == 0:
+            fma = lambda: main_lib.glm_fused_launch(kind, yy.data_ptr(), xx.data_ptr(), aa.data_ptr(), bb.data_ptr(),  # noqa: E731
+                                                    None if ee is None else ee.data_ptr(), part.data_ptr(),
+                                                    out.data_ptr(), n, d, cc, rb, stream)
+        else:
+            fma = lambda: main_lib.glm_ordered_launch(yy.data_ptr(), xx.data_ptr(), bb.data_ptr(), ee.data_ptr(),  # noqa: E731
+                                                      part.data_ptr(), out.data_ptr(), n, d, cc, kcat, rb, stream)
+        return cs.time_ms(fma, warmup=3, reps=20)
+
+    for label, (kind, kcat, yy, xx, aa, bb, ee, rows, kplan) in kernels.items():
+        plan = glm_fused.glm_tile_plan(n, d, c, sms, kcat=kplan)
+        out = torch.empty((rows, c), device="cuda")
+        part = torch.empty((plan["row_blocks"], rows, c), device="cuda")
+
+        def launch():
+            err = lib.glm_tc_launch(kind, kcat, yy.data_ptr(), xx.data_ptr(), None if aa is None else aa.data_ptr(),
+                                    bb.data_ptr(), None if ee is None else ee.data_ptr(), part.data_ptr(), out.data_ptr(),
+                                    n, d, c, plan["row_blocks"], stream)
+            if err != 0:
+                raise RuntimeError(f"{label} copy: CUDA error {err}")
+
+        ms = cs.time_ms(launch, warmup=3, reps=20)
+        lib.prof_reset()
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+        tiles = reps * len(range(0, -(-n // 64), plan["row_blocks"]))
+        clocks = read_clocks(lib, names, tiles)
+        print(json.dumps({"phase": "glm_tc_clocks", "kernel": label, "shape": {"n": n, "d": d, "c": c, "k": kplan},
+                          "plan": plan, "ms_with_clocks": ms,
+                          "fma_kernel_ms": fma_ms(kind, kcat, yy, xx, aa, bb, ee, rows, c),
+                          "clocks_per_tile_of_block_0": clocks,
+                          "total": sum(clocks.values())}), flush=True)
+
+        # 32 chains: the port's route (the tensor cores, half of each block
+        # without chains) against the float32-FMA kernel
+        small = 32
+        aa_s, bb_s = None if aa is None else aa[:small].contiguous(), bb[:, :small].contiguous()
+        ee_s = None if ee is None else (ee[:small] if ee.ndim == 1 else ee[:, :small]).contiguous()
+        if kplan is None:
+            fam_name = glm_fused.FAMILIES[kind]
+            tc = lambda: glm_fused.glm_fused_parts(fam_name, yy, xx, aa_s, bb_s, ee_s)  # noqa: E731
+        else:
+            tc = lambda: glm_fused.ordered_logistic_glm_parts(yy, xx, bb_s, ee_s)  # noqa: E731
+        small_plan = glm_fused.glm_tile_plan(n, d, small, sms, kcat=kplan)
+        tc_ms = cs.time_ms(tc, warmup=3, reps=20)
+        print(json.dumps({"phase": "glm_tc_small_chains", "kernel": label,
+                          "shape": {"n": n, "d": d, "c": small, "k": kplan}, "plan": small_plan,
+                          "tensor_core_ms": tc_ms, "fma_kernel_ms": fma_ms(kind, kcat, yy, xx, aa_s, bb_s, ee_s, rows, small)}),
+              flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("phase_clocks: no GPU", file=sys.stderr)
@@ -123,8 +223,9 @@ def main():
     os.makedirs(OUT, exist_ok=True)
     cat_src, cat_names = instrument("glm_categorical.cu", CATEGORICAL)
     blk_src, blk_names = instrument("chol_inv_block.cu", BLOCK)
+    tc_src, tc_names = instrument("glm_fused.cu", GLM_TC)
     paths = {}
-    for name, text in (("categorical_clocks", cat_src), ("block_clocks", blk_src)):
+    for name, text in (("categorical_clocks", cat_src), ("block_clocks", blk_src), ("glm_tc_clocks", tc_src)):
         paths[name] = os.path.join(OUT, name + ".cu")
         with open(paths[name], "w") as f:
             f.write(text)
@@ -132,6 +233,7 @@ def main():
         "probe": nvcc(os.path.join(ROOT, "tools", "wgmma_layout_probe.cu"), os.path.join(OUT, "wgmma_layout_probe"), False),
         "categorical_clocks": nvcc(paths["categorical_clocks"], os.path.join(OUT, "libcategorical_clocks.so")),
         "block_clocks": nvcc(paths["block_clocks"], os.path.join(OUT, "libblock_clocks.so")),
+        "glm_tc_clocks": nvcc(paths["glm_tc_clocks"], os.path.join(OUT, "libglm_tc_clocks.so")),
         "columnwise": nvcc(os.path.join(ROOT, "tools", "chol_inv_block_columnwise.cu"), os.path.join(OUT, "libcolumnwise.so")),
     }
     for what, proc in procs.items():
@@ -171,6 +273,8 @@ def main():
     print(json.dumps({"phase": "categorical_clocks", "shape": {"n": n, "d": d, "c": c, "k": k}, "plan": plan,
                       "ms_with_clocks": ms, "clocks_per_tile_of_block_0": clocks,
                       "total": sum(clocks.values())}), flush=True)
+
+    glm_tc_clocks(tc_names)
 
     # the block kernel on a Schur block of the GP path, and the column-by-column one
     _, schur = cs.gp_blocks(gp_regression.synthetic_data(cs.N_GP, seed=0)[0], get_config().cholesky_block_size, block_index=8)

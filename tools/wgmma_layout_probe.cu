@@ -6,7 +6,15 @@
 //    middle fragment registers swapped must be wrong, so the check can fail;
 //  * accuracy: random operands in [-1, 1), K = 64, one TF32 product and the
 //    three of the split against double, beside a float32 FMA loop;
-//  * bulk copy: a 1-D cp.async.bulk of one 64 x 50 float tile with an mbarrier.
+//  * bulk copy: a 1-D cp.async.bulk of one 64 x 50 float tile with an mbarrier;
+//  * transposed: the two products of glm_fused.cu's tensor-core kernels on
+//    small integers (exact), two warpgroups splitting the rows: m64n32k8 with
+//    A from shared memory (D1 = A1 B1^T, both K-major), then m64n64k8 with A
+//    from the registers of D1 through the
+//    fragment map {d[4j], d[4j+2], d[4j+1], d[4j+3]} and B's rows in
+//    k8_position order (D2 = D1 M); variants with B's rows in plain order,
+//    with the fragments in accumulator order, and with A's descriptor offsets
+//    swapped must be wrong.
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
@@ -89,6 +97,160 @@ __global__ void bulk_kernel(const float* src, float* dst, int nfl) {
     for (int i = threadIdx.x; i < nfl; i += blockDim.x) dst[i] = sm[i];
 }
 
+// D1 (64 x 64) = A1 (64 x KT) B1^T (B1: 64 x KT), then D2 (64 x 64) = D1 M (M: 64 x 64), all row-major in
+// global memory, as glm_fused.cu's tensor-core kernels take them: 3xTF32, two warpgroups, warpgroup h
+// taking columns 32h .. 32h+31 of D1 (m64n32k8, A1 and B1 by descriptor) and the same 32 rows of M's K
+// (m64n64k8, D1 as A from registers, k8 steps 4h .. 4h+3); the halves of D2 added in shared memory.
+// variant: 0 as the kernels, 1 M's rows in plain order, 2 the fragments in accumulator order, 3 A1's
+// descriptor offsets swapped.
+constexpr int KT = 16;
+__global__ void transposed_kernel(const float* A1, const float* B1, const float* M, float* D1, float* D2, int variant) {
+    extern __shared__ float sm[];
+    float* ahi = sm;                // 64 x KT K-major
+    float* alo = ahi + 64 * KT;
+    float* bhi = alo + 64 * KT;     // 64 x KT K-major
+    float* blo = bhi + 64 * KT;
+    float* mhi = blo + 64 * KT;     // 64 (N) x 64 (positions) K-major
+    float* mlo = mhi + 64 * 64;
+    float* half1 = mlo + 64 * 64;   // warpgroup 1's part of D2
+    const int tid = threadIdx.x;
+    for (int i = tid; i < 64 * KT; i += 256) {
+        const int m = i / KT, k = i % KT;
+        uint32_t h, l;
+        split(A1[i], h, l);
+        ahi[kmajor_index(m, k, KT)] = __uint_as_float(h);
+        alo[kmajor_index(m, k, KT)] = __uint_as_float(l);
+        split(B1[i], h, l);
+        bhi[kmajor_index(m, k, KT)] = __uint_as_float(h);
+        blo[kmajor_index(m, k, KT)] = __uint_as_float(l);
+    }
+    for (int i = tid; i < 64 * 64; i += 256) {
+        const int r = i / 64, n = i % 64;  // M[r][n]: row r of the second product's K
+        uint32_t h, l;
+        split(M[i], h, l);
+        const int pos = variant == 1 ? r : k8_position(r);
+        mhi[kmajor_index(n, pos, 64)] = __uint_as_float(h);
+        mlo[kmajor_index(n, pos, 64)] = __uint_as_float(l);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const int hf = tid >> 7, w = (tid >> 5) & 3, g = (tid % 32) / 4, t = tid % 4;
+    const uint64_t da_hi = (variant == 3 ? desc_offsets_swapped(ahi, KT) : kmajor_desc(ahi, KT));
+    const uint64_t da_lo = (variant == 3 ? desc_offsets_swapped(alo, KT) : kmajor_desc(alo, KT));
+    const uint64_t db_hi = kmajor_desc(bhi + 32 * hf * KT, KT), db_lo = kmajor_desc(blo + 32 * hf * KT, KT);
+    float d[16];
+    for (int i = 0; i < 16; ++i) d[i] = 0.0f;
+    fence_regs(d);
+    wgmma_fence();
+    for (int s = 0; s < KT / 8; ++s) {
+        const uint64_t o = s * desc_k8_step();
+        mma_n32k8_ss(d, da_lo + o, db_hi + o);
+        mma_n32k8_ss(d, da_hi + o, db_lo + o);
+        mma_n32k8_ss(d, da_hi + o, db_hi + o);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(d);
+    for (int j = 0; j < 4; ++j) {
+        D1[(16 * w + g) * 64 + 32 * hf + 8 * j + 2 * t] = d[4 * j];
+        D1[(16 * w + g) * 64 + 32 * hf + 8 * j + 2 * t + 1] = d[4 * j + 1];
+        D1[(16 * w + g + 8) * 64 + 32 * hf + 8 * j + 2 * t] = d[4 * j + 2];
+        D1[(16 * w + g + 8) * 64 + 32 * hf + 8 * j + 2 * t + 1] = d[4 * j + 3];
+    }
+    uint32_t lo[16];
+    for (int i = 0; i < 16; ++i) {
+        uint32_t h;
+        split(d[i], h, lo[i]);
+        d[i] = __uint_as_float(h);
+    }
+    float e[32];
+    for (int i = 0; i < 32; ++i) e[i] = 0.0f;
+    fence_regs(e);
+    wgmma_fence();
+    const uint64_t dm_hi = kmajor_desc(mhi, 64) + 4 * hf * desc_k8_step();
+    const uint64_t dm_lo = kmajor_desc(mlo, 64) + 4 * hf * desc_k8_step();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int i1 = variant == 2 ? 1 : 2, i2 = variant == 2 ? 2 : 1;
+        const uint32_t ah[4] = {__float_as_uint(d[4 * j]), __float_as_uint(d[4 * j + i1]), __float_as_uint(d[4 * j + i2]),
+                                __float_as_uint(d[4 * j + 3])};
+        const uint32_t al[4] = {lo[4 * j], lo[4 * j + i1], lo[4 * j + i2], lo[4 * j + 3]};
+        const uint64_t o = j * desc_k8_step();
+        mma_n64k8_rs(e, al, dm_hi + o);
+        mma_n64k8_rs(e, ah, dm_lo + o);
+        mma_n64k8_rs(e, ah, dm_hi + o);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(e);
+    fence_regs(d);
+    if (hf == 1) {
+        for (int i = 0; i < 32; ++i) half1[(tid - 128) * 32 + i] = e[i];
+    }
+    __syncthreads();
+    if (hf == 0) {
+        for (int i = 0; i < 32; ++i) e[i] += half1[tid * 32 + i];
+        for (int j = 0; j < 8; ++j) {
+            D2[(16 * w + g) * 64 + 8 * j + 2 * t] = e[4 * j];
+            D2[(16 * w + g) * 64 + 8 * j + 2 * t + 1] = e[4 * j + 1];
+            D2[(16 * w + g + 8) * 64 + 8 * j + 2 * t] = e[4 * j + 2];
+            D2[(16 * w + g + 8) * 64 + 8 * j + 2 * t + 1] = e[4 * j + 3];
+        }
+    }
+}
+
+static void transposed_checks() {
+    std::vector<float> A1(64 * KT), B1(64 * KT), M(64 * 64), D1(64 * 64), D2(64 * 64);
+    for (int m = 0; m < 64; ++m)
+        for (int k = 0; k < KT; ++k) {
+            A1[m * KT + k] = (float)((m * 3 + k * 5) % 7 - 3);
+            B1[m * KT + k] = (float)((m * 7 + k * 2) % 5 - 2);
+        }
+    for (int r = 0; r < 64; ++r)
+        for (int n = 0; n < 64; ++n) M[r * 64 + n] = (float)((r * 5 + n * 3) % 9 - 4);
+    std::vector<double> W1(64 * 64), W2(64 * 64);
+    for (int m = 0; m < 64; ++m)
+        for (int n = 0; n < 64; ++n) {
+            double s = 0.0;
+            for (int k = 0; k < KT; ++k) s += (double)A1[m * KT + k] * B1[n * KT + k];
+            W1[m * 64 + n] = s;
+        }
+    for (int m = 0; m < 64; ++m)
+        for (int n = 0; n < 64; ++n) {
+            double s = 0.0;
+            for (int r = 0; r < 64; ++r) s += W1[m * 64 + r] * M[r * 64 + n];
+            W2[m * 64 + n] = s;
+        }
+    float *dA, *dB, *dM, *dD1, *dD2;
+    cudaMalloc(&dA, A1.size() * 4);
+    cudaMalloc(&dB, B1.size() * 4);
+    cudaMalloc(&dM, M.size() * 4);
+    cudaMalloc(&dD1, D1.size() * 4);
+    cudaMalloc(&dD2, D2.size() * 4);
+    cudaMemcpy(dA, A1.data(), A1.size() * 4, cudaMemcpyHostToDevice);
+    cudaMemcpy(dB, B1.data(), B1.size() * 4, cudaMemcpyHostToDevice);
+    cudaMemcpy(dM, M.data(), M.size() * 4, cudaMemcpyHostToDevice);
+    const size_t smem = (4 * 64 * KT + 2 * 64 * 64 + 128 * 32) * 4;
+    cudaFuncSetAttribute(transposed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const char* names[4] = {"as_in_glm_fused", "rows_in_plain_order", "fragments_in_accumulator_order",
+                            "a_desc_offsets_swapped"};
+    for (int v = 0; v < 4; ++v) {
+        transposed_kernel<<<1, 256, smem>>>(dA, dB, dM, dD1, dD2, v);
+        const cudaError_t e = cudaDeviceSynchronize();
+        cudaMemcpy(D1.data(), dD1, D1.size() * 4, cudaMemcpyDeviceToHost);
+        cudaMemcpy(D2.data(), dD2, D2.size() * 4, cudaMemcpyDeviceToHost);
+        double e1 = 0.0, e2 = 0.0, w2 = 0.0;
+        for (int i = 0; i < 64 * 64; ++i) {
+            e1 = fmax(e1, fabs(D1[i] - W1[i]));
+            e2 = fmax(e2, fabs(D2[i] - W2[i]));
+            w2 = fmax(w2, fabs(W2[i]));
+        }
+        printf("{\"check\": \"transposed\", \"variant\": \"%s\", \"product1_a_from_smem_max_abs_err\": %g, "
+               "\"product2_a_from_accumulator_max_abs_err\": %g, \"max_abs_want\": %g, \"cuda\": \"%s\"}\n",
+               names[v], e1, e2, w2, cudaGetErrorString(e));
+    }
+}
+
 static double max_err(const std::vector<float>& A, const std::vector<float>& B, const std::vector<float>& D, bool fma32,
                       double* max_want) {
     double err = 0.0;
@@ -158,5 +320,6 @@ int main() {
     int bad = 0;
     for (int i = 0; i < nfl; ++i) bad += T[i] != S[i];
     printf("{\"check\": \"bulk_copy\", \"wrong_floats\": %d, \"cuda\": \"%s\"}\n", bad, cudaGetErrorString(e));
+    transposed_checks();
     return 0;
 }
