@@ -51,6 +51,24 @@ not 0 and no result line is printed):
    the latent model for 8 chains against float64.
 7. ``eight_schools`` 64 chains on the GPU (a model without a kernel).
 
+The slice of ``sample_nuts`` and the chunked sampler, each path with the counts
+set to 0 just before it and read just after (its kernel launched once per
+gradient call, no other kernel, no float32 kernel, no plain version and no
+layout copy):
+
+- ``sample_path``: ``sample_nuts`` (per-chain Stan warmup, ``auto_depth=True``)
+  on the 100,000 x 50 logistic GLM, 256 chains, float32, 150 + 50 at a
+  ceiling of 6: wall, gradient calls, ms per call, the chosen cap, tree
+  depth, ESS / R-hat, recovery of ``beta_true`` within 0.05;
+- ``chunked_path``: ``run_pooled_chains_chunked`` (chunks of 40) on the
+  ordinal regression against ``run_pooled_chains`` from the same generator
+  seed at the same cap, equal bit for bit; then with ``auto_depth=True``, its
+  cap per chunk;
+- ``dense_categorical``: ``sample_nuts(dense_mass=True)`` (a dense metric per
+  chain) on the multinomial regression, 150 + 50 at ``max_depth=6``:
+  gradient calls, tree depth, minimum bulk ESS and gradient calls per unit of
+  it, beside the same of ``categorical_path`` (the pooled diagonal metric).
+
 The ``kernels`` phase also holds the ordered and the categorical kernel
 against their plain versions (float64) at the main-path shape and at ragged
 shapes (N=1537, D=7, C=5, K=3 and 5; for the categorical kernel also C=13
@@ -62,8 +80,13 @@ two products alone as float32 cuBLAS calls; so are kernel 1's four families
 and the ordered kernel (their products as three TF32 products, the core on the
 float32 units).  ``kernels_wide`` holds the float32 kernels, which take the
 shapes the tensor-core layout cannot hold (D > 63, or K > 8 categories),
-against the plain version, and ``refusals`` shows each GLM wrapper refusing a
-misaligned x with no launch and no plain call.  ``kernels_chol`` prints the block
+against the plain version.  ``wide`` runs every input the dispatchers refused
+before (the four families at D = 282 and 1024, the ordered GLM at D =
+236, K = 5 and D = 1024, K = 12, the categorical at K = 65 and 200, D = 400 and
+D = 212 at K = 41; an x 4 bytes off a 16-byte boundary, a transposed x, an
+int64 y) through the public dispatchers, value and gradients against the
+float64 plain version, and times the wide shapes at N = 100,000, C = 256
+beside their bounds and the two products in float32 cuBLAS.  ``kernels_chol`` prints the block
 kernel's ``clock64`` stamps: how its time splits between factor and inverse.
 
 With ``--profile`` further phases trace a few sampling transitions of the
@@ -94,7 +117,7 @@ import torch.nn.functional as F
 
 from math_tpu_torch import dists, get_config, transforms, update_config
 from math_tpu_torch.diagnostics import convergence
-from math_tpu_torch.infer.pooled import run_pooled_chains
+from math_tpu_torch.infer import run_pooled_chains, run_pooled_chains_chunked, sample_nuts
 from math_tpu_torch.model import make_log_density
 from math_tpu_torch.models import eight_schools, glm_logistic, gp_regression
 from math_tpu_torch.ops import _build, chol_blocked, glm_fused
@@ -561,15 +584,7 @@ def check_other_families(x_gpu, driven):
     for family, (arrays, val, grads) in driven.items():
         y, _, *params = on_gpu(arrays, torch.float64)
         params = [p.requires_grad_(True) for p in params if p is not None]
-        logp, _, _, _ = glm_fused.glm_fused_parts_reference(
-            family, y, x64, params[0], params[1], params[2] if len(params) > 2 else None
-        )
-        n = y.shape[0]
-        if family == "normal_id":
-            logp = logp - n * torch.log(params[2])
-        elif family == "neg_binomial_2_log":
-            phi = params[2]
-            logp = logp + torch.lgamma(y[:, None] + phi[None, :]).sum(0) - n * torch.lgamma(phi) + n * phi * torch.log(phi)
+        logp = plain_logp(family, y, x64, params)
         want_grads = torch.autograd.grad(logp.sum(), params)
         require(bool(((val.double() - logp.detach()).abs() <= 2e-5 * logp.detach().abs()).all()), family)
         worst = 0.0
@@ -592,8 +607,10 @@ def phase_main_path(x, y, beta_true, entries):
     launches = dict(glm_fused.LAUNCHES)
     launches_fma = dict(glm_fused.LAUNCHES_FMA)
     plain_calls = dict(glm_fused.PLAIN_CALLS)
+    layout_copies = dict(glm_fused.LAYOUT_COPIES)
 
     require(launches_sampler["bernoulli_logit"] == res.n_grad_calls > 0, (launches_sampler, res.n_grad_calls))
+    require(all(v == 0 for v in layout_copies.values()), f"the dispatchers copied x or y on the main path: {layout_copies}")
     require(all(v == 0 for v in launches_fma.values()), f"a float32 kernel ran on the main path: {launches_fma}")
     require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the main path: {plain_calls}")
     for e in entries:
@@ -602,7 +619,7 @@ def phase_main_path(x, y, beta_true, entries):
         require(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     others = check_other_families(x_gpu, driven)
     emit("main_path", **report, kernel_launches=launches, fma_kernel_launches=launches_fma, plain_calls=plain_calls,
-         other_families=others)
+         layout_copies=layout_copies, other_families=others)
     return res
 
 
@@ -810,50 +827,229 @@ def phase_kernels_ordered_categorical(x_main):
     return entries
 
 
-def misaligned(x):
-    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte boundary."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    buf[1:] = x.reshape(-1)
-    return buf[1:].view(x.shape)
+# The inputs the dispatchers once refused: shapes the tensor-core layouts do
+# not hold, which the float32 kernels take (all four families at D = 282 and
+# 1024; the ordered one at D = 236, K = 5 and D = 1024, K = 12; the
+# categorical one at K = 65 and 200 with D = 50, D = 400 at K = 5 and D = 212
+# at K = 41), and layouts the dispatchers lay out (x[1:] with an odd D, so 4
+# bytes past a 16-byte boundary; a transposed x; an int64 y) at a shape of
+# each tensor-core route.
+C1_N, C1_C = 4099, 20  # ragged rows; 20 chains: a ragged second column tile
+C1_FAMILY_D = (282, 1024)
+C1_ORDERED = ((236, 5), (1024, 12))  # (d, k)
+C1_CATEGORICAL = ((50, 65), (50, 200), (400, 5), (212, 41))  # (d, k)
+C1_SHAPES = ([(f, d, None) for f in glm_fused.FAMILIES for d in C1_FAMILY_D] + [("ordered", d, k) for d, k in C1_ORDERED]
+             + [("categorical", d, k) for d, k in C1_CATEGORICAL])  # (kind, d, k)
+C1_LAYOUT_D, C1_LAYOUT_K = 33, 5
+C1_LAYOUTS = ("misaligned_x", "transposed_x", "int64_y")
 
 
-def check_refusals():
-    """On a CUDA tensor each GLM wrapper launches its kernel or raises.  The
-    categorical one refuses an x that is not 16-byte aligned (its row tiles
-    are bulk copies), a D no instantiation of the kernel takes and K > 64;
-    kernel 1 (bernoulli-logit) and the ordered kernel refuse a misaligned x at
-    a shape of the tensor-core route.  Each raises ValueError, and no kernel
-    and no plain version runs."""
-    counts = lambda: (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA), dict(glm_fused.PLAIN_CALLS))  # noqa: E731
-    before = counts()
-    n, d, c, k = 256, 7, 5, 5
+def glm_params(kind, d, c, k, seed, scale):
+    """y (numpy) and the float parameters (numpy, float32 values) of one GLM
+    kind: a family name, ``ordered`` or ``categorical``."""
+    if kind == "ordered":
+        y, _, beta, cuts = ordered_inputs(1, d, c, k, seed, scale, x=np.empty((0, d), np.float32))
+        return y, [beta, cuts]
+    if kind == "categorical":
+        y, _, alpha, beta = categorical_inputs(1, d, c, k, seed, scale, x=np.empty((0, d), np.float32))
+        return y, [alpha, beta]
+    y, _, alpha, beta, extra = make_inputs(kind, 1, d, c, seed, scale, x=np.empty((0, d), np.float32))
+    return y, [p for p in (alpha, beta, extra) if p is not None]
 
-    def cat_inputs(dd, kk, bad=False):
-        y, *floats = categorical_inputs(n, dd, c, kk, seed=9, scale=0.2)
-        y, x, alpha, beta = with_y(y, floats, torch.float32)
-        return y, misaligned(x) if bad else x, alpha, beta
 
-    fam = on_gpu(make_inputs("bernoulli_logit", n, d, c, seed=9, scale=0.2), torch.float32)
-    y_o, *floats_o = ordered_inputs(n, d, c, k, seed=9, scale=0.2)
-    y_o, x_o, beta_o, cuts_o = with_y(y_o, floats_o, torch.float32)
-    cases = {
-        "categorical": {"misaligned_x": (glm_fused.categorical_logit_glm_parts, cat_inputs(d, k, bad=True)),
-                        "d_400": (glm_fused.categorical_logit_glm_parts, cat_inputs(400, k)),
-                        "k_65": (glm_fused.categorical_logit_glm_parts, cat_inputs(d, 65))},
-        "bernoulli_logit": {"misaligned_x": (lambda *a: glm_fused.glm_fused_parts("bernoulli_logit", *a),
-                                             (fam[0], misaligned(fam[1]), fam[2], fam[3]))},
-        "ordered_logistic": {"misaligned_x": (glm_fused.ordered_logistic_glm_parts, (y_o, misaligned(x_o), beta_o, cuts_o))},
-    }
-    refused = {}
-    for kernel, labelled in cases.items():
-        for label, (fn, args) in labelled.items():
-            try:
-                fn(*args)
-            except ValueError as e:
-                refused.setdefault(kernel, {})[label] = str(e)
-        require(sorted(refused.get(kernel, {})) == sorted(labelled), f"{kernel} wrapper did not refuse {sorted(labelled)}")
-    require(counts() == before, "a refused call launched or fell back")
-    emit("refusals", **refused)
+def glm_y(kind, n, k, seed):
+    """n outcomes of one GLM kind from a seed (numpy)."""
+    rng = np.random.default_rng(seed)
+    if kind in ("ordered", "categorical"):
+        return rng.integers(1, k + 1, n).astype(np.int32)
+    return make_inputs(kind, n, 1, 1, seed, 0.1, x=np.empty((n, 1), np.float32))[0]
+
+
+def plain_logp(kind, y, x, params):
+    """The dispatcher's value by the plain version, differentiable (float64
+    on the card: the reference of the ``wide`` phase)."""
+    if kind == "ordered":
+        return glm_fused.ordered_logistic_glm_parts_reference(y, x, *params)[0]
+    if kind == "categorical":
+        return glm_fused.categorical_logit_glm_parts_reference(y, x, *params)[0]
+    extra = params[2] if len(params) > 2 else None
+    logp = glm_fused.glm_fused_parts_reference(kind, y, x, params[0], params[1], extra)[0]
+    n = y.shape[0]
+    if kind == "normal_id":
+        logp = logp - n * torch.log(extra)
+    elif kind == "neg_binomial_2_log":
+        logp = logp + torch.lgamma(y[:, None] + extra[None, :]).sum(0) - n * torch.lgamma(extra) + n * extra * torch.log(extra)
+    return logp
+
+
+def glm_dispatcher(kind):
+    if kind == "ordered":
+        return glm_fused.ordered_logistic_glm_lpmf_chains
+    if kind == "categorical":
+        return glm_fused.categorical_logit_glm_lpmf_chains
+    return DISPATCHERS[kind]
+
+
+def counter_key(kind):
+    return {"ordered": glm_fused.ORDERED, "categorical": glm_fused.CATEGORICAL}.get(kind, kind)
+
+
+def glm_route(kind, n, d, c, k):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if kind == "categorical":
+        return glm_fused.categorical_route(n, d, c, k, sms)["route"]
+    return glm_fused.glm_tile_plan(n, d, c, sms, kcat=k if kind == "ordered" else None)["route"]
+
+
+def dispatch_against_float64(label, kind, y_np, x32, params_np, layout=None):
+    """One call of the public dispatcher on the card (float32), value and
+    gradients by autograd, against the float64 plain version on the same
+    inputs: logp rtol 2e-5; gradients rtol 3e-4 and atol 1e-3 * max(1, N /
+    3000) (``kernels_wide``'s tolerances).  The dispatcher must launch one
+    kernel of the route its shape gets, copy ``x`` / ``y`` only for a
+    ``layout`` input, and call no plain version."""
+    n, d = x32.shape
+    c = params_np[0].shape[-1] if kind not in ("categorical",) else params_np[0].shape[0]
+    k = params_np[1].shape[0] + 1 if kind == "ordered" else (params_np[0].shape[1] if kind == "categorical" else None)
+    key = counter_key(kind)
+    route = glm_route(kind, n, d, c, k)
+    y = torch.as_tensor(y_np, device="cuda")
+    if layout == "int64_y":
+        y = y.to(torch.int64)  # an ordered / categorical kernel takes int32, a family's the type of x
+    else:
+        y = y.to(torch.int32) if kind in ("ordered", "categorical") else y.to(torch.float32)
+    x = x32
+    if layout == "misaligned_x":
+        buf = torch.empty((n + 1, d), dtype=torch.float32, device="cuda")
+        buf[1:] = x32
+        x = buf[1:]
+        require(x.data_ptr() % 16 != 0, f"{label}: x[1:] is aligned")
+    elif layout == "transposed_x":
+        x = x32.mT.contiguous().mT
+        require(not x.is_contiguous(), f"{label}: x is contiguous")
+    params = [torch.tensor(p, dtype=torch.float32, device="cuda").requires_grad_(True) for p in params_np]
+    before = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA), dict(glm_fused.PLAIN_CALLS), dict(glm_fused.LAYOUT_COPIES))
+    val = glm_dispatcher(kind)(y, x, *params)
+    grads = torch.autograd.grad(val.sum(), params)
+    torch.cuda.synchronize()
+    after = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA), dict(glm_fused.PLAIN_CALLS), dict(glm_fused.LAYOUT_COPIES))
+    tc = route == "tensor_cores"
+    want_tc = dict(before[0], **({key: before[0][key] + 1} if tc else {}))
+    want_fma = dict(before[1], **({} if tc else {key: before[1][key] + 1}))
+    require(after[0] == want_tc and after[1] == want_fma, f"{label}: not one launch of the {route} kernel")
+    require(after[2] == before[2], f"{label}: the plain version ran on a CUDA tensor")
+    require(after[3] == dict(before[3], **{key: before[3][key] + (1 if layout else 0)}),
+            f"{label}: layout copies {after[3]} against {before[3]}")
+    p64 = [torch.tensor(p, dtype=torch.float64, device="cuda").requires_grad_(True) for p in params_np]
+    y64 = torch.as_tensor(y_np, device="cuda")
+    y64 = y64.to(torch.int32) if kind in ("ordered", "categorical") else y64.to(torch.float64)
+    want = plain_logp(kind, y64, x32.double(), p64)
+    want_grads = torch.autograd.grad(want.sum(), p64)
+    grad_atol = 1e-3 * max(1.0, n / 3000.0)
+    errs = {}
+    for name, g, w, rtol, atol in [("logp", val.detach(), want.detach(), 2e-5, 0.0)] + [
+            (f"grad{i}", g, w, 3e-4, grad_atol) for i, (g, w) in enumerate(zip(grads, want_grads))]:
+        require(g.shape == w.shape and bool(torch.isfinite(g).all()), f"{label} {name}: shape or non-finite")
+        err = (g.double() - w).abs()
+        require(bool((err <= atol + rtol * w.abs()).all()), (
+            f"{label} {name}: dispatcher disagrees with the float64 plain version: max abs err {float(err.max())}, "
+            f"max |want| {float(w.abs().max())}, rtol {rtol}, atol {atol}"))
+        errs[name] = float(err.max())
+    return {"route": route, "n": n, "d": d, "c": c, "k": k, "abs_err": errs}
+
+
+def wide_bound(kind, n, d, c, k):
+    """The least time of the function at a wide shape: its FP32-FMA
+    operations at 67 TFLOP/s (the products 4*N*D*C, K times that for the
+    categorical, and the core) or its bytes at 3.35 TB/s (inputs read once,
+    outputs written once), whichever is larger."""
+    if kind == "categorical":
+        flops = 4.0 * n * d * c * k + float(categorical_core_ops(k)) * n * c
+        nbytes = 4.0 * (n + n * d + c * k + c * d * k) + 4.0 * (c + c * k + c * d * k)
+    elif kind == "ordered":
+        flops = 4.0 * n * d * c + float(ordered_core_ops(k)) * n * c
+        nbytes = 4.0 * (n + n * d + d * c + (k - 1) * c) + 4.0 * (c + d * c + (k - 1) * c)
+    else:
+        flops = 4.0 * n * d * c + float(CORE_OPS[kind]) * n * c
+        nbytes = 4.0 * (n * d + n + 2 * d * c + 3 * c + (2 * c if glm_fused.HAS_EXTRA[kind] else 0))
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def glm_products_library_rows(x, x1, bmat, max_elems=2.5e8):
+    """``glm_products_library`` over blocks of rows, so that eta of a wide
+    categorical shape (N x C*K) is never whole in memory (timing only)."""
+    rows = max(1, int(max_elems // bmat.shape[1]))
+    out = None
+    for r in range(0, x.shape[0], rows):
+        p = glm_products_library(x[r : r + rows], x1[r : r + rows], bmat)
+        out = p if out is None else out + p
+    return out
+
+
+def time_wide(kind, d, k, x_main):
+    """The kernel of one wide shape at N = 100,000, C = 256 (one launch: the
+    largest take seconds), beside its bound and the two products alone in
+    float32 cuBLAS (timing only)."""
+    n, c = N_MAIN, C_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(700 + d + (k or 0))
+    x = x_main if d == x_main.shape[1] else torch.randn((n, d), generator=gen, device="cuda")
+    y = torch.as_tensor(glm_y(kind, n, k, seed=710 + d), device="cuda")
+    y = y.to(torch.int32) if kind in ("ordered", "categorical") else y.to(torch.float32)
+    scale = min(0.1, 1.0 / math.sqrt(d))
+    _, params = glm_params(kind, d, c, k, seed=720 + d, scale=scale)
+    params = [torch.tensor(p, device="cuda") for p in params]
+    if kind == "ordered":
+        fn = lambda: glm_fused.ordered_logistic_glm_parts(y, x, *params)  # noqa: E731
+        bmat = params[0]
+    elif kind == "categorical":
+        fn = lambda: glm_fused.categorical_logit_glm_parts(y, x, *params)  # noqa: E731
+        bmat = params[1].permute(1, 0, 2).reshape(d, c * k)
+    else:
+        fn = lambda: glm_fused.glm_fused_parts(kind, y, x, *params[:2], params[2] if len(params) > 2 else None)  # noqa: E731
+        bmat = params[1]
+    require(glm_route(kind, n, d, c, k) == "fma", f"{kind} d{d} k{k}: not the float32 route at N={n}, C={c}")
+    ms = time_ms(fn, warmup=0, reps=1)
+    x1 = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+    library_ms = time_ms(lambda: glm_products_library_rows(x, x1, bmat), warmup=0, reps=1)
+    del x1, bmat
+    bound = wide_bound(kind, n, d, c, k)
+    require(bound["bound_ms"] <= ms, f"{kind} d{d} k{k}: {ms} ms beats its bound {bound['bound_ms']} ms")
+    return {"kind": kind, "n": n, "d": d, "c": c, "k": k, "ms": ms, **bound,
+            "fp32_tflops": bound["flops"] / (ms * 1e-3) / 1e12, "products_library_ms": library_ms}
+
+
+def phase_wide(x_main):
+    """The inputs the dispatchers once refused, through them on the card, each
+    against the float64 plain version (N = 4,099, C = 20); then the wide
+    shapes timed at N = 100,000, C = 256."""
+    x_full = torch.tensor(x_main, device="cuda")
+    checks, timings = {}, []
+    for i, (kind, d, k) in enumerate(C1_SHAPES):
+        rng = np.random.default_rng(800 + i)
+        x = torch.tensor(rng.normal(size=(C1_N, d)).astype(np.float32), device="cuda")
+        y = glm_y(kind, C1_N, k, seed=810 + i)
+        _, params = glm_params(kind, d, C1_C, k, seed=820 + i, scale=min(0.1, 1.0 / math.sqrt(d)))
+        label = f"{kind}_d{d}" + (f"_k{k}" if k else "")
+        checks[label] = dispatch_against_float64(label, kind, y, x, params)
+        require(checks[label]["route"] == "fma", f"{label}: a wide shape must take the float32 route")
+    for j, kind in enumerate(glm_fused.FAMILIES[:1] + ("ordered", "categorical")):
+        k = C1_LAYOUT_K if kind != "bernoulli_logit" else None
+        rng = np.random.default_rng(900 + j)
+        x = torch.tensor(rng.normal(size=(C1_N, C1_LAYOUT_D)).astype(np.float32), device="cuda")
+        y = glm_y(kind, C1_N, k, seed=910 + j)
+        _, params = glm_params(kind, C1_LAYOUT_D, C1_C, k, seed=920 + j, scale=0.1)
+        for layout in C1_LAYOUTS:
+            label = f"{kind}_{layout}"
+            checks[label] = dispatch_against_float64(label, kind, y, x, params, layout=layout)
+            require(checks[label]["route"] == "tensor_cores", f"{label}: the layout inputs must take the tensor-core route")
+    for kind, d, k in C1_SHAPES:
+        timings.append(time_wide(kind, d, k, x_full))
+        torch.cuda.empty_cache()
+    emit("wide", inputs=checks, timed=timings,
+         tolerance={"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": "1e-3 * max(1, N / 3000)"})
+    return checks, timings
 
 
 def ordinal_data(x, seed=1):
@@ -957,8 +1153,16 @@ def drive_model_sampler(model, x, y, truth, *, chains, num_warmup, num_samples, 
         "mean_accept": float(res.accept_prob.mean()),
         "ess_bulk_first6": [float(v) for v in convergence.ess_bulk(pos[..., :6])],
         "split_rhat_first6": [float(v) for v in convergence.split_rhat(pos[..., :6])],
+        **ess_per_call(pos, res.n_grad_calls),
     }
     return res, report, model, (xt, yt), truth
+
+
+def ess_per_call(pos, grad_calls):
+    """Minimum bulk ESS over every coordinate of the draws (chains, n, dim), and
+    the chain-batched gradient calls per unit of it."""
+    min_ess = float(np.min(convergence.ess_bulk(pos)))
+    return {"min_ess_bulk": min_ess, "grad_calls_per_min_ess": grad_calls / min_ess}
 
 
 def drive_ordinal_sampler(x, y, beta_true, cuts_true, **kw):
@@ -1018,7 +1222,9 @@ def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
     launches = dict(glm_fused.LAUNCHES)
     launches_fma = dict(glm_fused.LAUNCHES_FMA)
     plain_calls = dict(glm_fused.PLAIN_CALLS)
+    layout_copies = dict(glm_fused.LAYOUT_COPIES)
     require(launches[family] == res.n_grad_calls > 0, f"{launches[family]} launches for {res.n_grad_calls} gradient calls")
+    require(all(v == 0 for v in layout_copies.values()), f"the dispatchers copied x or y on the {label}: {layout_copies}")
     require(all(v == 0 for f, v in launches.items() if f != family), f"another kernel ran: {launches}")
     require(all(v == 0 for v in launches_fma.values()), f"a float32 kernel ran on the {label}: {launches_fma}")
     require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the {label}: {plain_calls}")
@@ -1033,9 +1239,155 @@ def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
         for name, v in theta_map.items()
     }
     emit(label, **report, kernel_launches=launches[family], fma_kernel_launches=launches_fma, plain_calls=plain_calls,
-         vs_float64_at_8_final_positions=check,
+         layout_copies=layout_copies, vs_float64_at_8_final_positions=check,
          float64_map=map_report)
-    return res, model, (xt, yt)
+    return res, model, (xt, yt), report
+
+
+# ---------------------------------------------------------------------------
+# The slice of sample_nuts and the chunked sampler: per-chain adaptation on the
+# GLM, chunked pooled warmup on the ordinal regression, the dense metric on the
+# multinomial
+# ---------------------------------------------------------------------------
+
+
+def only_kernel(label, family, grad_calls):
+    """After a path: ``family``'s tensor-core kernel launched once per gradient
+    call and nothing else: no other kernel, no float32 kernel, no plain
+    version, no layout copy."""
+    launches = dict(glm_fused.LAUNCHES)
+    require(launches[family] == grad_calls > 0, f"{label}: {launches[family]} launches for {grad_calls} gradient calls")
+    require(all(v == 0 for f, v in launches.items() if f != family), f"{label}: another kernel ran: {launches}")
+    for name, counts in (("float32 kernel", glm_fused.LAUNCHES_FMA), ("plain version", glm_fused.PLAIN_CALLS),
+                         ("layout copy", glm_fused.LAYOUT_COPIES)):
+        require(all(v == 0 for v in counts.values()), f"{label}: a {name} ran: {dict(counts)}")
+    return launches[family]
+
+
+def drive_sample_nuts(model, x, y, y_dtype, *, chains, num_warmup, num_samples, max_depth, seed, device="cuda",
+                      dtype=torch.float32, **kw):
+    """``sample_nuts`` as a user calls it, on ``model`` with data ``(x, y)``;
+    returns ``(res, wall_s, (xt, yt))``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xt = torch.tensor(x, dtype=dtype, device=device)
+    yt = torch.tensor(y, dtype=y_dtype, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sample_nuts(model.logp, gen, model.dim, args=(xt, yt), num_chains=chains, num_warmup=num_warmup,
+                      num_samples=num_samples, max_depth=max_depth, device=device, dtype=dtype, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(res.position.shape == (chains, num_samples, model.dim), f"draws have shape {tuple(res.position.shape)}")
+    require(bool(torch.isfinite(res.position).all()), "non-finite draws")
+    return res, wall, (xt, yt)
+
+
+def sample_report(res, wall, chains, num_warmup, num_samples):
+    pos = res.position.double().cpu().numpy()
+    eps = res.step_size.double().cpu()
+    return {
+        "chains": chains, "num_warmup": num_warmup, "num_samples": num_samples, "wall_s": wall,
+        "grad_calls": res.n_grad_calls, "ms_per_grad_call": wall / res.n_grad_calls * 1e3, "max_depth_used": res.max_depth,
+        "mean_tree_depth": float(res.stats.tree_depth.double().mean()),
+        "warmup_mean_tree_depth": float(res.warmup_tree_depth.double().mean()),
+        # all lanes run a transition together: its cost is its deepest lane's tree
+        "warmup_deepest_lane_depth": float(res.warmup_tree_depth.max(0).values.double().mean()),
+        "mean_lane_leapfrogs_per_transition": float(res.stats.n_leapfrog.double().mean()),
+        "deepest_lane_leapfrogs_per_transition": float(res.stats.n_leapfrog.max(0).values.double().mean()),
+        "step_size_min_median_max": [float(eps.min()), float(eps.median()), float(eps.max())],
+        "divergence_rate": float(res.stats.diverging.double().mean()),
+        "ess_bulk_first6": [float(v) for v in convergence.ess_bulk(pos[..., :6])],
+        "split_rhat_first6": [float(v) for v in convergence.split_rhat(pos[..., :6])],
+        **ess_per_call(pos, res.n_grad_calls),
+    }
+
+
+def phase_sample_path(x, y, beta_true):
+    """``sample_nuts`` (per-chain Stan warmup, ``auto_depth=True``) on the
+    100,000 x 50 logistic GLM, 256 chains, float32, 150 + 50 at a ceiling of
+    6; the counts set to 0 just before and read just after."""
+    model = glm_logistic.make(x.shape[1])
+    glm_fused.reset_counts()
+    res, wall, _ = drive_sample_nuts(model, x, y, torch.float32, chains=C_MAIN, num_warmup=150, num_samples=50,
+                                     max_depth=6, seed=0, auto_depth=True)
+    launches = only_kernel("sample_path", "bernoulli_logit", res.n_grad_calls)
+    report = sample_report(res, wall, C_MAIN, 150, 50)
+    require(report["divergence_rate"] < 0.05, f"sample_path: divergence rate {report['divergence_rate']}")
+    beta = model.transform_draws(res.position)["beta"].double().reshape(-1, x.shape[1]).cpu().numpy()
+    beta_err = float(np.max(np.abs(beta.mean(0) - beta_true)))
+    require(beta_err < 0.05, f"sample_path: max |mean(beta) - beta_true| = {beta_err}")
+    emit("sample_path", **report, max_abs_beta_err=beta_err, kernel_launches=launches)
+
+
+def phase_chunked_path(x, data):
+    """``run_pooled_chains_chunked`` on the ordinal regression (256 chains,
+    150 + 50, chunks of 40) against ``run_pooled_chains`` from the same
+    generator seed at the same fixed cap: equal draws, bit for bit; then once
+    with ``auto_depth=True``, its cap per chunk."""
+    model = make_ordinal(x.shape[1])
+    xt = torch.tensor(x, device="cuda")
+    yt = torch.tensor(data[0], dtype=torch.int32, device="cuda")
+    z0 = model.initial_positions(torch.Generator(device="cuda").manual_seed(5), C_MAIN, device="cuda")
+    kw = dict(args=(xt, yt), num_warmup=150, num_samples=50, max_depth=6, device="cuda")
+    glm_fused.reset_counts()
+    runs, walls = {}, {}
+    for name, fn, extra in (("monolithic", run_pooled_chains, {}),
+                            ("chunked", run_pooled_chains_chunked, {"warmup_chunk": 40, "sample_chunk": 40}),
+                            ("chunked_auto_depth", run_pooled_chains_chunked,
+                             {"warmup_chunk": 40, "sample_chunk": 40, "auto_depth": True})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = fn(torch.Generator(device="cuda").manual_seed(6), z0, model.logp, **kw, **extra)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    launches = only_kernel("chunked_path", glm_fused.ORDERED, sum(r.n_grad_calls for r in runs.values()))
+    mono, chunked, auto = runs["monolithic"], runs["chunked"], runs["chunked_auto_depth"]
+    diffs = {name: float((getattr(chunked, name).double() - getattr(mono, name).double()).abs().max())
+             for name in ("position", "accept_prob", "energy", "tree_depth")}
+    equal = all(torch.equal(getattr(chunked, name), getattr(mono, name))
+                for name in ("position", "accept_prob", "diverging", "tree_depth", "n_leapfrog", "energy"))
+    require(equal and chunked.n_grad_calls == mono.n_grad_calls,
+            f"chunked_path: chunked and monolithic draws differ: largest differences {diffs}")
+    for r in (mono, auto):
+        require(bool(torch.isfinite(r.position).all()) and float(r.diverging.double().mean()) < 0.05,
+                "chunked_path: non-finite draws or divergences")
+    emit("chunked_path", chains=C_MAIN, num_warmup=150, num_samples=50, chunk=40, bitwise_equal=equal,
+         largest_differences=diffs, wall_s=walls, grad_calls={k: r.n_grad_calls for k, r in runs.items()},
+         ms_per_grad_call={k: walls[k] / r.n_grad_calls * 1e3 for k, r in runs.items()},
+         auto_depth_caps_per_chunk=list(auto.chunk_caps), auto_depth_final_cap=auto.max_depth,
+         auto_depth_mean_tree_depth=float(auto.tree_depth.double().mean()),
+         auto_depth_saturation=float((auto.tree_depth >= auto.max_depth).double().mean()),
+         ess_bulk_first6={k: [float(v) for v in convergence.ess_bulk(r.position.double().cpu().numpy()[..., :6])]
+                          for k, r in runs.items()},
+         kernel_launches=launches)
+
+
+def phase_dense_categorical(x, data, diag_report):
+    """``sample_nuts(dense_mass=True)`` (a dense metric per chain) on the
+    multinomial regression (K = 5, dim 204), 256 chains, 150 + 50 at
+    ``max_depth=6``: gradient calls, tree depth, minimum bulk ESS and calls per
+    unit of it, beside the same of ``categorical_path`` (pooled diagonal
+    metric)."""
+    k = len(data[1])
+    model = make_multinomial(x.shape[1], k)
+    glm_fused.reset_counts()
+    res, wall, _ = drive_sample_nuts(model, x, data[0], torch.int32, chains=C_MAIN, num_warmup=150, num_samples=50,
+                                     max_depth=6, seed=0, dense_mass=True)
+    launches = only_kernel("dense_categorical", glm_fused.CATEGORICAL, res.n_grad_calls)
+    report = sample_report(res, wall, C_MAIN, 150, 50)
+    require(res.inv_mass.shape == (C_MAIN, model.dim, model.dim), f"dense metric of shape {tuple(res.inv_mass.shape)}")
+    draws = model.transform_draws(res.position)
+    truth = {"alpha_raw": data[1][1:], "beta_raw": data[2][:, 1:]}
+    errs = {name: float(np.max(np.abs(draws[name].double().reshape((-1,) + np.shape(v)).mean(0).cpu().numpy() - v)))
+            for name, v in truth.items()}
+    require(report["divergence_rate"] < 0.05, f"dense_categorical: divergence rate {report['divergence_rate']}")
+    require(max(errs.values()) < 0.08, f"dense_categorical: max |posterior mean - generating value| = {errs}")
+    keys = ("grad_calls", "mean_tree_depth", "min_ess_bulk", "grad_calls_per_min_ess", "wall_s")
+    emit("dense_categorical", **report, max_abs_err_vs_truth=errs, kernel_launches=launches,
+         pooled_diagonal_categorical_path={key: diag_report[key] for key in keys},
+         calls_per_min_ess_dense_over_diagonal=report["grad_calls_per_min_ess"] / diag_report["grad_calls_per_min_ess"])
 
 
 # ---------------------------------------------------------------------------
@@ -1404,26 +1756,31 @@ def main():
     chol_entry = phase_kernels_chol(gp_regression.synthetic_data(N_GP, seed=0)[0])
     ord_entry, cat_entry = phase_kernels_ordered_categorical(x)
     phase_kernels_wide()
-    check_refusals()
+    phase_wide(x)
     res = phase_main_path(x, y, beta_true, entries)
     if profiling:
         args = (torch.tensor(x, device="cuda"), torch.tensor(y, device="cuda"))
         phase_profile(res, glm_logistic.make(K_MAIN), args)
     del res
 
-    res, model, args = phase_glm_path(
+    phase_sample_path(x, y, beta_true)
+
+    res, model, args, _ = phase_glm_path(
         "ordinal_path", glm_fused.ORDERED, ord_entry, drive_ordinal_sampler, make_ordinal(K_MAIN, fused=False),
         x, ordinal_data(x), tol=0.05,
     )
     if profiling:
         phase_profile(res, model, args, label="profile_ordinal")
-    res, model, args = phase_glm_path(
+    del res, model, args
+    phase_chunked_path(x, ordinal_data(x))
+    res, model, args, cat_report = phase_glm_path(
         "categorical_path", glm_fused.CATEGORICAL, cat_entry, drive_categorical_sampler, make_multinomial(K_MAIN, fused=False),
         x, categorical_data(x), tol=0.08,
     )
     if profiling:
         phase_profile(res, model, args, label="profile_categorical")
     del res, model, args
+    phase_dense_categorical(x, categorical_data(x), cat_report)
     entries += [ord_entry, cat_entry]
 
     gp_res, gp_model, gp_x, gp_y = phase_gp_path(chol_entry)

@@ -1,12 +1,14 @@
 // Fused GLM log-prob + parameter gradients for a batch of chains: two of the
 // port's three GLM kernels, which share their tiles, their two products and
-// their second pass.  The third, the categorical logit, is in
-// glm_categorical.cu (tensor cores, 3xTF32).
+// their second pass, and the float32 route of the third.  The third, the
+// categorical logit, is on the tensor cores in glm_categorical.cu (3xTF32);
+// the shapes that kernel does not take come here.
 //
 // Replaces the TPU kernels of math_tpu/ops/pallas_glm.py:
 //
-//   glm_fused_kernel<F>      _glm_kernel          four families, eta = x @ beta + alpha
-//   glm_ordered_kernel       _ordered_kernel      ordered-logistic GLM
+//   glm_fused_kernel<F>          _glm_kernel          four families, eta = x @ beta + alpha
+//   glm_ordered_kernel           _ordered_kernel      ordered-logistic GLM
+//   glm_categorical_wide_kernel  _categorical_kernel  categorical logit, K > 64 or a wide D
 //
 // Four families.  y (N,), x (N, K) row-major, alpha (C,), beta (K, C) row-major
 // and, for the sigma/phi families, extra (C,), all float32:
@@ -32,7 +34,7 @@
 //
 //   glm_tc_kernel<F, 0, W>        the four families   on the tensor cores, D <= 63
 //   glm_tc_kernel<ORDERED, K, W>  ordered, K <= 8     (3xTF32), the main path's
-//   glm_fused_kernel<F>           the four families   float32 FMAs, the wider
+//   glm_fused_kernel<F>           the four families   float32 FMAs, any D: the
 //   glm_ordered_kernel            ordered, any K      shapes the first cannot hold
 //
 // What bounds them: operations.  The two products are 4*N*D*C flops on about
@@ -94,26 +96,43 @@
 //  * One partial per block, added over the blocks in block order in double by
 //    reduce_partials_kernel: no atomics, deterministic.
 //
-// Design of the float32 kernels (the first design; they take what the
-// tensor-core layout cannot hold):
-//  * Rows AND chains are tiled, 64 x 64.  Each block stages its beta tile once,
-//    then per row tile: the x tile (stage_x_tile), eta by 4x4 register tiles
-//    (eta_product), the likelihood core, theta' to shared memory, and the
-//    block's x^T theta' from the same staged x tile (xt_theta_product).  x is
-//    streamed once per chain tile; a 20 MB design matrix stays in the 50 MB L2.
+// Design of the float32 kernels (they take what the tensor-core layouts
+// cannot hold, at any D and K):
+//  * Rows AND chains are tiled, 64 x 64, and the features come in slices of
+//    DS = 64: per row tile, eta by 4x4 register tiles (eta_product) summed
+//    over the slices of x and beta, the likelihood core, theta' to shared
+//    memory, then x^T theta' slice by slice (xt_theta_slice, the last slice
+//    first: it is still staged).  A slice's gradient sums go straight to the
+//    block's own partial in device memory (stored on its first tile, added on
+//    the others; one owner thread per entry, so no atomics), which the second
+//    pass adds in double.  Shared memory no longer grows with D or K.  With
+//    one slice (D <= 64) beta is staged once per block; with more, x is read
+//    twice a row tile and beta once a slice.
 //  * Ragged edges are masked in the kernels; nothing is padded on the host.
 //  * The TPU kernels gather the cut pair and scatter gcuts with one-hot
-//    matmuls (the MXU doing a gather); here the pair is read by index from the
-//    extended cut tile, and gcuts is summed by one thread per (cut, chain)
-//    walking the tile's 64 rows in order.  expm1f / log1pf come from the CUDA
-//    math library (the TPU kernel carries a polynomial expm1).
+//    matmuls (the MXU doing a gather); here the pair is read by index from
+//    the cuts in device memory, and gcuts is summed by one thread per (cut,
+//    chain) walking the tile's 64 rows in order.  expm1f / log1pf come from
+//    the CUDA math library (the TPU kernel carries a polynomial expm1).
+//  * The categorical logit: a column tile holds floor(64/K) chains of all K
+//    classes, or, past K = 64, one chain whose classes come in class tiles
+//    of at most 64.  Two sweeps a row tile: the first keeps each (row,
+//    chain)'s running maximum and sum of exponentials over the class tiles
+//    (an online log-sum-exp), the second recomputes eta a class tile at a
+//    time (where there is more than one), forms theta' = onehot(y) -
+//    softmax(eta) and adds x^T theta' and sum theta' to the partial.  lp is
+//    summed per tile in float and over the tiles in double, as in B3.
+//
+// What bounds the float32 kernels: their products in FP32 FMAs, 4*N*D*C (and
+// K times that for the categorical, 6*N*D*C*K where eta is recomputed) at
+// 67 TFLOP/s.  The inner loops take four features a step, a float4 of x per
+// row and of beta per feature: 64 FMAs for eight 16-byte shared loads.
 //
 // Shared memory per block of the float32 kernels, 4 bytes a float: kernel 1
-// 64*64 + 2*64*K + 64*K + 64 (55 KB at K=50); ordered 3*64*64 + 2*64*D +
-// 2*64*K + 64*D + 64 (89 KB at D=50, K=5).  The wrappers refuse what does not
-// fit.  Of the tensor-core kernels: tc_layout_of (204-216 KB at D=50); a
-// shape whose block does not fit 227 KB (D = 57-63 with K = 6-8) goes to
-// the float32 kernels.
+// 3*64*64 + 64 (49 KB); ordered 5*64*64 + 64 (80 KB); categorical 3*64*64 +
+// 2*64*cpt + 64 (49-81 KB).  Of the tensor-core kernels: tc_layout_of
+// (204-216 KB at D=50); a shape whose block does not fit 227 KB (D = 57-63
+// with K = 6-8) goes to the float32 kernels.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -136,85 +155,90 @@ constexpr float ORD_BIG = 1e4f;  // stands in for the -/+ inf boundary cuts
 // The float32 kernels' pieces
 // ---------------------------------------------------------------------------
 
-// dst (rows, TC) <- columns c0 .. c0+63 of the row-major src (rows, c), zero
-// past the last column.
-__device__ __forceinline__ void stage_column_tile(float* dst, const float* __restrict__ src, int rows, int c, int c0) {
-    for (int i = threadIdx.x; i < rows * TC; i += THREADS) {
+constexpr int DS = 64;  // features (columns of x) per slice: x and beta are staged DS at a time
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+    return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// The 4-aligned width of slice s of d features (the staged slice is zero past d).
+__device__ __forceinline__ int slice_width(int d, int s) { return (min(DS, d - s * DS) + 3) & ~3; }
+
+// xs (TM x DS) <- rows r0 .. r0+63 and features d0 .. d0+63 of the row-major x
+// (n, d); zeros past the last row and feature.  Neighbouring threads read
+// neighbouring features of a row.
+__device__ __forceinline__ void stage_x_slice(float* xs, const float* __restrict__ x, int r0, int n, int d, int d0) {
+    for (int i = threadIdx.x; i < TM * DS; i += THREADS) {
+        const int r = r0 + i / DS;
+        const int f = d0 + i % DS;
+        xs[i] = (r < n && f < d) ? x[(size_t)r * d + f] : 0.0f;
+    }
+}
+
+// bs (DS x TC) <- features d0 .. d0+63 of columns c0 .. c0+63 of the row-major
+// beta (d, c); zeros past the last feature and column.
+__device__ __forceinline__ void stage_beta_slice(float* bs, const float* __restrict__ beta, int d, int c, int d0, int c0) {
+    for (int i = threadIdx.x; i < DS * TC; i += THREADS) {
+        const int f = d0 + i / TC;
         const int cc = c0 + i % TC;
-        dst[i] = cc < c ? src[(size_t)(i / TC) * c + cc] : 0.0f;
+        bs[i] = (f < d && cc < c) ? beta[(size_t)f * c + cc] : 0.0f;
     }
 }
 
-// The x rows r0 .. r0+63: one contiguous span of TM*d floats, copied flat, 4
-// bytes a thread, coalesced (a row of 50 floats is not 16-byte aligned); zeros
-// past the last row.
-__device__ __forceinline__ void stage_x_tile(float* xs, const float* __restrict__ x, int r0, int n, int d) {
-    const long long base = (long long)r0 * d;
-    const long long total = (long long)n * d;
-    for (int i = threadIdx.x; i < TM * d; i += THREADS) {
-        xs[i] = (base + i < total) ? x[base + i] : 0.0f;
-    }
-}
-
-// acc = x_tile @ b_tile for this thread's rows ty*4 .. ty*4+3 and columns
-// tx*4 .. tx*4+3.
-__device__ __forceinline__ void eta_product(float (&acc)[RM][RC], const float* xs, const float* bs, int d) {
+// acc += xs @ bs over the slice's first `width` features (a multiple of 4) for
+// this thread's rows ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3.  Four features
+// a step: a float4 of x per row and a float4 of beta per feature, 64 FMAs for
+// eight 16-byte loads.
+__device__ __forceinline__ void eta_product(float (&acc)[RM][RC], const float* xs, const float* bs, int width) {
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
+    const float* xr = xs + (ty * RM) * DS;
+    for (int k0 = 0; k0 < width; k0 += 4) {
+        float4 xv[RM];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
+        for (int i = 0; i < RM; ++i) xv[i] = *reinterpret_cast<const float4*>(xr + i * DS + k0);
 #pragma unroll
-        for (int j = 0; j < RC; ++j) acc[i][j] = 0.0f;
-    }
-    const float* xr = xs + (ty * RM) * d;
-    for (int kk = 0; kk < d; ++kk) {
-        const float4 b4 = *reinterpret_cast<const float4*>(bs + kk * TC + tx * RC);
-        const float b[RC] = {b4.x, b4.y, b4.z, b4.w};
+        for (int kk = 0; kk < 4; ++kk) {
+            const float4 b4 = *reinterpret_cast<const float4*>(bs + (k0 + kk) * TC + tx * RC);
+            const float b[RC] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-            const float xv = xr[i * d + kk];
+            for (int i = 0; i < RM; ++i) {
+                const float xv_i = lane_of(xv[i], kk);
 #pragma unroll
-            for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(xv, b[j], acc[i][j]);
-        }
-    }
-}
-
-// gs (d, TC) += x_tile^T @ th_tile; with kOnesRow also gs row d += the column
-// sums of th (x extended by a column of ones).  A thread owns 4 rows of gs
-// (k0 .. k0+3) by 4 columns; each entry of gs has exactly one owner.
-template <bool kOnesRow>
-__device__ __forceinline__ void xt_theta_product(float* gs, const float* xs, const float* th, int d) {
-    const int tx = threadIdx.x % 16;
-    const int ty = threadIdx.x / 16;
-    const int rows = kOnesRow ? d + 1 : d;
-    for (int k0 = ty * 4; k0 < rows; k0 += 64) {
-        const int kn = min(4, rows - k0);
-        float g[4][RC];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-#pragma unroll
-            for (int j = 0; j < RC; ++j) g[q][j] = 0.0f;
-        }
-        for (int r = 0; r < TM; ++r) {
-            const float4 t4 = *reinterpret_cast<const float4*>(th + r * TC + tx * RC);
-            const float tv[RC] = {t4.x, t4.y, t4.z, t4.w};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const int col = k0 + q;
-                const float xv = q < kn ? ((!kOnesRow || col < d) ? xs[r * d + col] : 1.0f) : 0.0f;
-#pragma unroll
-                for (int j = 0; j < RC; ++j) g[q][j] = fmaf(xv, tv[j], g[q][j]);
-            }
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            if (q < kn) {
-#pragma unroll
-                for (int j = 0; j < RC; ++j) gs[(k0 + q) * TC + tx * RC + j] += g[q][j];
+                for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(xv_i, b[j], acc[i][j]);
             }
         }
     }
 }
+
+// g = xs^T @ th over the tile's TM rows for this thread's slice features
+// ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3: one float4 of x and one of theta'
+// a row.
+__device__ __forceinline__ void xt_theta_slice(float (&g)[4][RC], const float* xs, const float* th) {
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int j = 0; j < RC; ++j) g[q][j] = 0.0f;
+    }
+#pragma unroll 4
+    for (int r = 0; r < TM; ++r) {
+        const float4 x4 = *reinterpret_cast<const float4*>(xs + r * DS + ty * 4);
+        const float4 t4 = *reinterpret_cast<const float4*>(th + r * TC + tx * RC);
+        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+        const float tv[RC] = {t4.x, t4.y, t4.z, t4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+            for (int j = 0; j < RC; ++j) g[q][j] = fmaf(xv[q], tv[j], g[q][j]);
+        }
+    }
+}
+
+// *p = v on the block's first row tile, *p += v on the others.  Each entry of
+// a block's partial has one owner thread, the same on every tile.
+__device__ __forceinline__ void put_partial(float* p, float v, bool first) { *p = first ? v : *p + v; }
 
 // Sums of Q per-thread (C,) quantities over the 16 row groups of the block, in
 // a fixed order, through red (Q * 16 * TC floats).  Thread tid < Q*TC gets the
@@ -250,6 +274,60 @@ cudaError_t launch_two_pass(Kernel kernel, dim3 grid, size_t smem, cudaStream_t 
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return glm_common::reduce_partials(partials, out, (int)grid.x, m, stream);
+}
+
+// Shared memory of the float32 kernels: the same for every D and K (x and
+// beta come in slices of DS features; the cuts are read from device memory).
+constexpr size_t FUSED_SMEM = sizeof(float) * (TM * TC + DS * TC + TM * DS + TM);
+constexpr size_t ORDERED_SMEM = sizeof(float) * (3 * TM * TC + DS * TC + TM * DS + TM);
+
+// eta (this thread's 4 x 4) of the row tile at r0 for the column tile at c0,
+// over every slice of the d features; the last slice stays staged in xs.
+// beta's slice is staged here unless there is only one (then it is staged
+// once per block).
+__device__ __forceinline__ void eta_over_slices(float (&acc)[RM][RC], float* xs, float* bs, const float* __restrict__ x,
+                                                const float* __restrict__ beta, int r0, int n, int d, int c, int c0) {
+    const int n_slices = (d + DS - 1) / DS;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+#pragma unroll
+        for (int j = 0; j < RC; ++j) acc[i][j] = 0.0f;
+    }
+    for (int s = 0; s < n_slices; ++s) {
+        if (s > 0) __syncthreads();  // the previous slice's product is done with xs and bs
+        stage_x_slice(xs, x, r0, n, d, s * DS);
+        if (n_slices > 1) stage_beta_slice(bs, beta, d, c, s * DS, c0);
+        __syncthreads();
+        eta_product(acc, xs, bs, slice_width(d, s));
+    }
+}
+
+// The block's gradient rows from theta' (th) and the row tile's x, slice by
+// slice, last slice first (it is still staged): feature f goes to the
+// partial's row row0 + f, column c0 + tx*4 + j.
+__device__ __forceinline__ void gradient_over_slices(float* part, const float* th, float* xs, const float* __restrict__ x,
+                                                     int r0, int n, int d, int c, int c0, int row0, bool first) {
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+    const int n_slices = (d + DS - 1) / DS;
+    for (int s = n_slices - 1; s >= 0; --s) {
+        if (s != n_slices - 1) {
+            __syncthreads();  // every thread is done with the previous slice
+            stage_x_slice(xs, x, r0, n, d, s * DS);
+            __syncthreads();
+        }
+        float g[4][RC];
+        xt_theta_slice(g, xs, th);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int f = s * DS + ty * 4 + q;
+#pragma unroll
+            for (int j = 0; j < RC; ++j) {
+                const int cc = c0 + tx * RC + j;
+                if (f < d && cc < c) put_partial(part + (size_t)(row0 + f) * c + cc, g[q][j], first);
+            }
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -323,7 +401,10 @@ __device__ __forceinline__ void glm_core(float eta, float y, float extra, float 
     }
 }
 
-// partials: (gridDim.x, K + 3, C); rows 0, 1, 2 are logp, ga, ge, rows 3.. are gb.
+// partials: (gridDim.x, K + 3, C); rows 0, 1, 2 are logp, ga, ge, rows 3.. are
+// gb.  The gb rows are the block's sums over its row tiles, kept in its own
+// partial (stored on its first tile, added on the others); logp, ga and ge are
+// summed in registers and written at the end.
 template <int F>
 __global__ void __launch_bounds__(THREADS)
 glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
@@ -331,19 +412,18 @@ glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
                  const float* __restrict__ extra, int n, int k, int c, float* __restrict__ partials) {
     extern __shared__ float4 smem4[];
     float* th = reinterpret_cast<float*>(smem4);  // TM * TC   theta' tile
-    float* bs = th + TM * TC;                     // k * TC    beta tile
-    float* gbs = bs + k * TC;                     // k * TC    this block's gb sums
-    float* xs = gbs + k * TC;                     // TM * k    x tile, flat
-    float* ys = xs + TM * k;                      // TM
+    float* bs = th + TM * TC;                     // DS * TC   beta slice
+    float* xs = bs + DS * TC;                     // TM * DS   x slice
+    float* ys = xs + TM * DS;                     // TM
 
     const int tid = threadIdx.x;
     const int tx = tid % 16;  // chains tx*4 .. tx*4+3 of the tile
     const int ty = tid / 16;  // rows   ty*4 .. ty*4+3 of the tile
     const int c0 = blockIdx.y * TC;
     constexpr bool kHasExtra = (F == NORMAL_ID) || (F == NEG_BINOMIAL_2_LOG);
+    float* part = partials + (size_t)blockIdx.x * (size_t)(k + 3) * c;
 
-    stage_column_tile(bs, beta, k, c, c0);
-    for (int i = tid; i < k * TC; i += THREADS) gbs[i] = 0.0f;
+    if (k <= DS) stage_beta_slice(bs, beta, k, c, 0, c0);  // one slice: staged once
 
     float a[RC], e0[RC], e1[RC];
     bool cv[RC];
@@ -367,16 +447,13 @@ glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const int r0 = t * TM;
         // the previous tile's second product is done with xs and th (and, on
-        // the first pass, bs and gbs are staged)
+        // the first pass, bs is staged)
         __syncthreads();
-        stage_x_tile(xs, x, r0, n, k);
         if (tid < TM) {
             ys[tid] = (r0 + tid < n) ? y[r0 + tid] : 0.0f;
         }
-        __syncthreads();
-
         float acc[RM][RC];
-        eta_product(acc, xs, bs, k);
+        eta_over_slices(acc, xs, bs, x, beta, r0, n, k, c, c0);
 
         // family core; theta' to shared memory, the (C,) sums stay in registers
 #pragma unroll
@@ -403,25 +480,22 @@ glm_fused_kernel(const float* __restrict__ y, const float* __restrict__ x,
         }
         __syncthreads();
 
-        xt_theta_product<false>(gbs, xs, th, k);
+        gradient_over_slices(part, th, xs, x, r0, n, k, c, c0, 3, t == (int)blockIdx.x);
     }
     __syncthreads();
 
     // th is free now
     const float s = row_group_sum<3>(th, sums);
-    float* part = partials + (size_t)blockIdx.x * (size_t)(k + 3) * c;
     if (tid < 3 * TC && c0 + tid % TC < c) part[(size_t)(tid / TC) * c + c0 + tid % TC] = s;
-    for (int i = tid; i < k * TC; i += THREADS) {
-        const int cc = c0 + i % TC;
-        if (cc < c) part[(size_t)(3 + i / TC) * c + cc] = gbs[i];
-    }
 }
 
 // ---------------------------------------------------------------------------
 // Kernel 2: ordered logistic
 // ---------------------------------------------------------------------------
 
-// partials: (gridDim.x, D + K, C); row 0 is logp, rows 1..D gbeta, rows D+1.. gcuts.
+// partials: (gridDim.x, D + K, C); row 0 is logp, rows 1..D gbeta, rows D+1..
+// gcuts.  gbeta and gcuts are the block's sums in its own partial, as kernel
+// 1's gb; the cut pair of a (row, chain) is read from cuts in device memory.
 __global__ void __launch_bounds__(THREADS)
 glm_ordered_kernel(const int* __restrict__ y, const float* __restrict__ x,
                    const float* __restrict__ beta, const float* __restrict__ cuts,
@@ -430,26 +504,17 @@ glm_ordered_kernel(const int* __restrict__ y, const float* __restrict__ x,
     float* th = reinterpret_cast<float*>(smem4);  // TM * TC        theta' tile
     float* w1s = th + TM * TC;                    // TM * TC        w1 tile
     float* w2s = w1s + TM * TC;                   // TM * TC        w2 tile
-    float* bs = w2s + TM * TC;                    // d * TC         beta tile
-    float* gbs = bs + d * TC;                     // d * TC         this block's gbeta sums
-    float* ce = gbs + d * TC;                     // (kcat+1) * TC  extended cut tile
-    float* gcs = ce + (kcat + 1) * TC;            // (kcat-1) * TC  this block's gcuts sums
-    float* xs = gcs + (kcat - 1) * TC;            // TM * d         x tile, flat
-    int* ys = reinterpret_cast<int*>(xs + TM * d);  // TM
+    float* bs = w2s + TM * TC;                    // DS * TC        beta slice
+    float* xs = bs + DS * TC;                     // TM * DS        x slice
+    int* ys = reinterpret_cast<int*>(xs + TM * DS);  // TM
 
     const int tid = threadIdx.x;
     const int tx = tid % 16;  // chains tx*4 .. tx*4+3 of the tile
     const int ty = tid / 16;  // rows   ty*4 .. ty*4+3 of the tile
     const int c0 = blockIdx.y * TC;
+    float* part = partials + (size_t)blockIdx.x * (size_t)(d + kcat) * c;
 
-    stage_column_tile(bs, beta, d, c, c0);
-    for (int i = tid; i < d * TC; i += THREADS) gbs[i] = 0.0f;
-    stage_column_tile(ce + TC, cuts, kcat - 1, c, c0);
-    if (tid < TC) {
-        ce[tid] = -ORD_BIG;
-        ce[kcat * TC + tid] = ORD_BIG;
-    }
-    for (int i = tid; i < (kcat - 1) * TC; i += THREADS) gcs[i] = 0.0f;
+    if (d <= DS) stage_beta_slice(bs, beta, d, c, 0, c0);  // one slice: staged once
 
     bool cv[RC];
     float s_lp[1][RC];
@@ -458,21 +523,23 @@ glm_ordered_kernel(const int* __restrict__ y, const float* __restrict__ x,
         cv[j] = c0 + tx * RC + j < c;
         s_lp[0][j] = 0.0f;
     }
+    // the extended cut c_j of column cc: -/+ORD_BIG at j = 0 and j = kcat
+    auto cut = [&](int j, int cc) {
+        return j == 0 ? -ORD_BIG : (j == kcat ? ORD_BIG : cuts[(size_t)(j - 1) * c + cc]);
+    };
 
     const int n_tiles = (n + TM - 1) / TM;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const int r0 = t * TM;
+        const bool first = t == (int)blockIdx.x;
         // the previous tile's second product and cut sums are done with xs,
-        // th, w1s, w2s and ys (and, on the first pass, the tiles are staged)
+        // th, w1s, w2s and ys (and, on the first pass, bs is staged)
         __syncthreads();
-        stage_x_tile(xs, x, r0, n, d);
         if (tid < TM) {
             ys[tid] = (r0 + tid < n) ? min(max(y[r0 + tid], 1), kcat) : 1;
         }
-        __syncthreads();
-
         float acc[RM][RC];
-        eta_product(acc, xs, bs, d);
+        eta_over_slices(acc, xs, bs, x, beta, r0, n, d, c, c0);
 
         // the core; theta', w1, w2 to shared memory, the logp sums in registers
 #pragma unroll
@@ -483,10 +550,10 @@ glm_ordered_kernel(const int* __restrict__ y, const float* __restrict__ x,
             float tpv[RC], w1v[RC], w2v[RC];
 #pragma unroll
             for (int j = 0; j < RC; ++j) {
-                const int cc = tx * RC + j;
+                const int cc = c0 + tx * RC + j;
                 const float eta = acc[i][j];
-                const float u2 = ce[yv * TC + cc] - eta;
-                const float u1 = ce[(yv - 1) * TC + cc] - eta;
+                const float u2 = (cv[j] ? cut(yv, cc) : 0.0f) - eta;
+                const float u1 = (cv[j] ? cut(yv - 1, cc) : 0.0f) - eta;
                 const float sp2 = softplus_m(u2);
                 const float sp1 = softplus_m(u1);
                 float lp = u2 - sp2 - sp1 + log1m_exp_f(u1 - u2);
@@ -507,34 +574,232 @@ glm_ordered_kernel(const int* __restrict__ y, const float* __restrict__ x,
         }
         __syncthreads();
 
-        xt_theta_product<false>(gbs, xs, th, d);
-
         // gcuts: one task per (cut j, chain), the tile's rows in order
         for (int i = tid; i < (kcat - 1) * TC; i += THREADS) {
-            const int cut = i / TC + 1;  // 1-based cut index
+            const int cj = i / TC + 1;  // 1-based cut index
             const int cc = i % TC;
             float s = 0.0f;
             for (int r = 0; r < TM; ++r) {
                 const int yr = ys[r];
-                s += (yr == cut ? w2s[r * TC + cc] : 0.0f) - (yr == cut + 1 ? w1s[r * TC + cc] : 0.0f);
+                s += (yr == cj ? w2s[r * TC + cc] : 0.0f) - (yr == cj + 1 ? w1s[r * TC + cc] : 0.0f);
             }
-            gcs[i] += s;
+            if (c0 + cc < c) put_partial(part + (size_t)(d + cj) * c + c0 + cc, s, first);
         }
+
+        gradient_over_slices(part, th, xs, x, r0, n, d, c, c0, 1, first);
     }
     __syncthreads();
 
     // th is free now
     const float s = row_group_sum<1>(th, s_lp);
-    float* part = partials + (size_t)blockIdx.x * (size_t)(d + kcat) * c;
     if (tid < TC && c0 + tid < c) part[c0 + tid] = s;
-    for (int i = tid; i < d * TC; i += THREADS) {
-        const int cc = c0 + i % TC;
-        if (cc < c) part[(size_t)(1 + i / TC) * c + cc] = gbs[i];
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3, the float32 route: categorical logit for the shapes the
+// tensor-core kernel (glm_categorical.cu) does not take
+// ---------------------------------------------------------------------------
+
+// A column tile holds cpt chains of kt classes each: all K classes of
+// floor(64 / K) chains where K <= 64, else one chain whose classes come in
+// nkt = ceil(K / kt) class tiles.  Column j of the tile is chain c0 + j / kt,
+// class kti*kt + j % kt of class tile kti.
+struct CatTile {
+    int c0, cpt, kt, kcls, c;
+    __device__ __forceinline__ int chain(int j) const { return j / kt; }
+    __device__ __forceinline__ int cls(int j, int kti) const { return kti * kt + j % kt; }
+    __device__ __forceinline__ bool valid(int j, int kti) const {
+        return j < cpt * kt && c0 + j / kt < c && cls(j, kti) < kcls;
     }
-    for (int i = tid; i < (kcat - 1) * TC; i += THREADS) {
-        const int cc = c0 + i % TC;
-        if (cc < c) part[(size_t)(1 + d + i / TC) * c + cc] = gcs[i];
+};
+
+// Shared memory of the float32 categorical kernel for cpt chains a tile.
+__host__ __device__ inline size_t categorical_wide_smem(int cpt) {
+    return sizeof(float) * ((size_t)TM * TC + DS * TC + TM * DS + 2 * (size_t)TM * cpt + TM);
+}
+
+// partials: (gridDim.x, C*(1 + K + D*K)); logp (C), galpha (C, K), gbeta (C, D,
+// K), as the tensor-core kernel's.  Per row tile two sweeps over the class
+// tiles: the first keeps each (row, chain)'s running maximum and sum of
+// exponentials (an online log-sum-exp; the sum is rescaled when the maximum
+// moves) and picks the logit of its class; the second forms theta' =
+// onehot(y) - softmax(eta) a class tile at a time, recomputing eta when there
+// is more than one class tile, and adds x^T theta' and sum theta' to the
+// block's partial.
+__global__ void __launch_bounds__(THREADS)
+glm_categorical_wide_kernel(const int* __restrict__ y, const float* __restrict__ x,
+                            const float* __restrict__ alpha, const float* __restrict__ beta,
+                            int n, int d, int c, int kcls, int cpt, int kt, float* __restrict__ partials) {
+    extern __shared__ float4 smem4[];
+    float* th = reinterpret_cast<float*>(smem4);  // TM * TC    eta, then theta' in place
+    float* bs = th + TM * TC;                     // DS * TC    beta slice of the class tile
+    float* xs = bs + DS * TC;                     // TM * DS    x slice
+    float* mx = xs + TM * DS;                     // TM * cpt   running maximum, then the log-sum-exp
+    float* se = mx + TM * cpt;                    // TM * cpt   running sum of exp(eta - max); then lp
+    int* ys = reinterpret_cast<int*>(se + TM * cpt);  // TM     0-based classes
+
+    const int tid = threadIdx.x;
+    const int tx = tid % 16;
+    const int ty = tid / 16;
+    const CatTile ct{(int)blockIdx.y * cpt, cpt, kt, kcls, c};
+    const int nkt = (kcls + kt - 1) / kt;
+    const int n_slices = (d + DS - 1) / DS;
+    const size_t mtot = (size_t)c * (1 + kcls + (size_t)d * kcls);
+    float* part = partials + (size_t)blockIdx.x * mtot;
+    float* part_ga = part + c;
+    float* part_gb = part_ga + (size_t)c * kcls;
+
+    // beta's slice s of class tile kti, column j = (chain, class)
+    auto stage_beta = [&](int s, int kti) {
+        for (int i = tid; i < DS * TC; i += THREADS) {
+            const int f = s * DS + i / TC;
+            const int j = i % TC;
+            bs[i] = (f < d && ct.valid(j, kti))
+                        ? beta[((size_t)(ct.c0 + ct.chain(j)) * d + f) * kcls + ct.cls(j, kti)] : 0.0f;
+        }
+    };
+    // eta + alpha of class tile kti into th (0 in the columns that hold no
+    // class); the last slice of x stays staged
+    auto eta_tile = [&](int r0, int kti) {
+        float acc[RM][RC];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+#pragma unroll
+            for (int j = 0; j < RC; ++j) acc[i][j] = 0.0f;
+        }
+        for (int s = 0; s < n_slices; ++s) {
+            __syncthreads();  // every thread is done with xs, bs and th
+            stage_x_slice(xs, x, r0, n, d, s * DS);
+            if (n_slices > 1 || nkt > 1) stage_beta(s, kti);
+            __syncthreads();
+            eta_product(acc, xs, bs, slice_width(d, s));
+        }
+#pragma unroll
+        for (int jj = 0; jj < RC; ++jj) {
+            const int j = tx * RC + jj;
+            const bool ok = ct.valid(j, kti);
+            const float a = ok ? alpha[(size_t)(ct.c0 + ct.chain(j)) * kcls + ct.cls(j, kti)] : 0.0f;
+#pragma unroll
+            for (int i = 0; i < RM; ++i) th[(ty * RM + i) * TC + j] = ok ? acc[i][jj] + a : 0.0f;
+        }
+        __syncthreads();
+    };
+
+    if (n_slices == 1 && nkt == 1) stage_beta(0, 0);  // staged once for the block
+
+    double lp_acc = 0.0;  // threads tid < cpt: the logp sum of chain c0 + tid
+    const int ntask = TM * cpt;  // (row, chain) pairs of the tile
+    const int nrounds = (4 * ntask + THREADS - 1) / THREADS;
+    const int n_tiles = (n + TM - 1) / TM;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int r0 = t * TM;
+        const bool first = t == (int)blockIdx.x;
+        __syncthreads();  // the previous tile is done with ys, mx, se
+        if (tid < TM) ys[tid] = (r0 + tid < n) ? min(max(y[r0 + tid], 1), kcls) - 1 : 0;
+
+        // --- sweep 1: the online log-sum-exp over the class tiles -----------
+        // four threads a (row, chain), each over every fourth class of the
+        // tile, joined by shuffles; every thread takes part in every round
+        for (int kti = 0; kti < nkt; ++kti) {
+            eta_tile(r0, kti);
+            for (int round = 0; round < nrounds; ++round) {
+                const int i = round * THREADS + tid;
+                const int task = i >> 2;
+                const int sub = i & 3;
+                const bool live = task < ntask;
+                const int r = live ? task / cpt : 0;
+                const int q = live ? task % cpt : 0;
+                const float* e = th + r * TC + q * kt;
+                const int kn = min(kt, kcls - kti * kt);  // classes of this tile
+                float m = -INFINITY;
+                if (live) {
+                    for (int kk = sub; kk < kn; kk += 4) m = fmaxf(m, e[kk]);
+                }
+                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+                float sum = 0.0f;
+                if (live) {
+                    for (int kk = sub; kk < kn; kk += 4) sum += expf(e[kk] - m);
+                }
+                sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+                sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+                if (live && sub == 0) {
+                    if (kti == 0) {
+                        mx[task] = m;
+                        se[task] = sum;
+                    } else {
+                        const float m_new = fmaxf(mx[task], m);
+                        se[task] = se[task] * expf(mx[task] - m_new) + sum * expf(m - m_new);
+                        mx[task] = m_new;
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        for (int task = tid; task < ntask; task += THREADS) mx[task] += logf(se[task]);  // the log-sum-exp
+        __syncthreads();
+
+        // --- sweep 2: theta' and the block's gradient sums -------------------
+        for (int kti = 0; kti < nkt; ++kti) {
+            if (nkt > 1) eta_tile(r0, kti);
+            // lp into se for the (row, chain) pairs whose class is in this tile
+            for (int task = tid; task < ntask; task += THREADS) {
+                const int r = task / cpt;
+                const int q = task % cpt;
+                const int yk = ys[r];
+                if (yk / kt == kti) {
+                    const bool ok = (r0 + r < n) && (ct.c0 + q < c);
+                    se[task] = ok ? th[r * TC + q * kt + yk % kt] - mx[task] : 0.0f;
+                }
+            }
+            __syncthreads();  // the logits are read before theta' replaces them
+            // theta' in place
+            for (int i = tid; i < TM * TC; i += THREADS) {
+                const int r = i / TC;
+                const int j = i % TC;
+                const bool ok = ct.valid(j, kti) && (r0 + r < n);
+                const float tp = ok ? (ct.cls(j, kti) == ys[r] ? 1.0f : 0.0f) - expf(th[i] - mx[r * cpt + ct.chain(j)]) : 0.0f;
+                th[i] = tp;
+            }
+            __syncthreads();
+            // galpha: the column sums of theta', rows in order
+            if (tid < TC && ct.valid(tid, kti)) {
+                float s = 0.0f;
+                for (int r = 0; r < TM; ++r) s += th[r * TC + tid];
+                put_partial(part_ga + (size_t)(ct.c0 + ct.chain(tid)) * kcls + ct.cls(tid, kti), s, first);
+            }
+            // gbeta: x^T theta', last slice first
+            for (int s = n_slices - 1; s >= 0; --s) {
+                if (s != n_slices - 1) {
+                    __syncthreads();
+                    stage_x_slice(xs, x, r0, n, d, s * DS);
+                    __syncthreads();
+                }
+                float g[4][RC];
+                xt_theta_slice(g, xs, th);
+#pragma unroll
+                for (int qq = 0; qq < 4; ++qq) {
+                    const int f = s * DS + ty * 4 + qq;
+#pragma unroll
+                    for (int jj = 0; jj < RC; ++jj) {
+                        const int j = tx * RC + jj;
+                        if (f < d && ct.valid(j, kti)) {
+                            put_partial(part_gb + ((size_t)(ct.c0 + ct.chain(j)) * d + f) * kcls + ct.cls(j, kti),
+                                        g[qq][jj], first);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        // the tile's lp per chain, rows in order in float, into the block's sum in double
+        if (tid < cpt) {
+            float tile_lp = 0.0f;
+            for (int r = 0; r < TM; ++r) tile_lp += se[r * cpt + tid];
+            lp_acc += (double)tile_lp;
+        }
     }
+    if (tid < cpt && ct.c0 + tid < c) part[ct.c0 + tid] = (float)lp_acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -931,16 +1196,16 @@ cudaError_t launch_tc(dim3 grid, size_t smem, cudaStream_t stream, const void* y
 // (0: both passes were accepted).
 // ---------------------------------------------------------------------------
 
-// Bytes of dynamic shared memory one block of kernel 1 needs for k columns.
-extern "C" long long glm_fused_smem_bytes(int k) {
-    return (long long)sizeof(float) * ((long long)TM * TC + 2LL * k * TC + (long long)TM * k + TM);
-}
+// Whether row_blocks blocks along the rows each get at least one 64-row tile
+// (each block writes its partial from its first tile on).
+static bool row_blocks_ok(int n, int row_blocks) { return row_blocks >= 1 && row_blocks <= (n + TM - 1) / TM; }
 
 // partials: (row_blocks, k + 3, c); out: (k + 3, c) with rows logp, ga, ge,
 // gb[0..k).  extra may be null for the families without one.
 extern "C" int glm_fused_launch(int family, const void* y, const void* x, const void* alpha,
                                 const void* beta, const void* extra, void* partials, void* out,
                                 int n, int k, int c, int row_blocks, void* stream_ptr) {
+    if (k < 1 || c < 1 || !row_blocks_ok(n, row_blocks)) return (int)cudaErrorInvalidValue;
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
     const float* yf = static_cast<const float*>(y);
     const float* xf = static_cast<const float*>(x);
@@ -948,7 +1213,7 @@ extern "C" int glm_fused_launch(int family, const void* y, const void* x, const 
     const float* bf = static_cast<const float*>(beta);
     const float* ef = static_cast<const float*>(extra);
     float* pf = static_cast<float*>(partials);
-    const size_t smem = (size_t)glm_fused_smem_bytes(k);
+    const size_t smem = FUSED_SMEM;
     const dim3 grid(row_blocks, (c + TC - 1) / TC);
     const long long m = (long long)(k + 3) * c;
     cudaError_t err;
@@ -972,23 +1237,40 @@ extern "C" int glm_fused_launch(int family, const void* y, const void* x, const 
     return (int)err;
 }
 
-// Bytes of dynamic shared memory one block of the ordered kernel needs for d
-// columns and kcat categories.
-extern "C" long long glm_ordered_smem_bytes(int d, int kcat) {
-    return (long long)sizeof(float) *
-           (3LL * TM * TC + 2LL * d * TC + 2LL * kcat * TC + (long long)TM * d + TM);
-}
-
 // partials: (row_blocks, d + kcat, c); out: (d + kcat, c) with rows logp,
 // gbeta[0..d), gcuts[0..kcat-1).
 extern "C" int glm_ordered_launch(const void* y, const void* x, const void* beta, const void* cuts,
                                   void* partials, void* out, int n, int d, int c, int kcat,
                                   int row_blocks, void* stream_ptr) {
+    if (d < 1 || c < 1 || kcat < 2 || !row_blocks_ok(n, row_blocks)) return (int)cudaErrorInvalidValue;
     const dim3 grid(row_blocks, (c + TC - 1) / TC);
     return (int)launch_two_pass(
-        glm_ordered_kernel, grid, (size_t)glm_ordered_smem_bytes(d, kcat), reinterpret_cast<cudaStream_t>(stream_ptr),
+        glm_ordered_kernel, grid, ORDERED_SMEM, reinterpret_cast<cudaStream_t>(stream_ptr),
         static_cast<float*>(partials), out, (long long)(d + kcat) * c, static_cast<const int*>(y),
         static_cast<const float*>(x), static_cast<const float*>(beta), static_cast<const float*>(cuts), n, d, c, kcat);
+}
+
+// Bytes of dynamic shared memory one block of the float32 categorical kernel
+// needs for cpt chains a column tile.
+extern "C" long long glm_categorical_wide_smem_bytes(int cpt) { return (long long)categorical_wide_smem(cpt); }
+
+// The float32 categorical kernel: cpt chains of kt classes a column tile
+// (cpt * kt <= 64; cpt == 1 where kt < kcls).  partials: (row_blocks,
+// c*(1 + kcls + d*kcls)); out: the same length, logp (c), galpha (c, kcls),
+// gbeta (c, d, kcls), as glm_categorical_launch's.
+extern "C" int glm_categorical_wide_launch(const void* y, const void* x, const void* alpha, const void* beta,
+                                           void* partials, void* out, int n, int d, int c, int kcls, int cpt, int kt,
+                                           int row_blocks, void* stream_ptr) {
+    if (d < 1 || c < 1 || kcls < 1 || cpt < 1 || kt < 1 || cpt * kt > TC || (kt < kcls && cpt != 1) || kt > kcls ||
+        !row_blocks_ok(n, row_blocks)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const dim3 grid(row_blocks, (c + cpt - 1) / cpt);
+    return (int)launch_two_pass(
+        glm_categorical_wide_kernel, grid, categorical_wide_smem(cpt), reinterpret_cast<cudaStream_t>(stream_ptr),
+        static_cast<float*>(partials), out, (long long)c * (1 + kcls + (long long)d * kcls), static_cast<const int*>(y),
+        static_cast<const float*>(x), static_cast<const float*>(alpha), static_cast<const float*>(beta), n, d, c, kcls,
+        cpt, kt);
 }
 
 // Shared memory of one block of the tensor-core kernels (TC_CHAINS chains):

@@ -1,11 +1,13 @@
-"""Inference: chain-batched NUTS with pooled warmup
+"""Inference: chain-batched NUTS with pooled or per-chain warmup
 (counterpart: ``math_tpu/infer``)."""
 
 from math_tpu_torch.infer.nuts import (  # noqa: F401
     ChainNoise,
     IntegratorState,
     LogpGrad,
+    Metric,
     NutsStats,
     nuts_kernel,
 )
-from math_tpu_torch.infer.pooled import PooledResult, run_pooled_chains  # noqa: F401
+from math_tpu_torch.infer.pooled import PooledResult, run_pooled_chains, run_pooled_chains_chunked  # noqa: F401
+from math_tpu_torch.infer.sample import ChainResult, sample_nuts  # noqa: F401

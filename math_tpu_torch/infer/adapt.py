@@ -9,7 +9,11 @@ windows from 25, terminal buffer 50), with the Welford accumulator from
 
 The dual-averaging and Welford states are tensors on the sampler's device (no
 host round trip per step); the schedule helpers are numpy, as in the JAX
-package.
+package.  Each state holds one accumulator, or one per chain: dual averaging
+takes a ``(C,)`` step size, and ``welford_init`` / ``welford_cov_init`` take
+``chains=C`` for ``(C, D)`` means and ``(C, D)`` / ``(C, D, D)`` moments,
+updated by ``(C, D)`` draws.  All chains of a batch update together, so the
+count is shared.
 """
 
 from __future__ import annotations
@@ -67,16 +71,23 @@ class WelfordState(NamedTuple):
     m2: torch.Tensor
 
 
-def welford_init(dim, dtype=torch.float32, device=None):
+def _lead(chains):
+    return () if chains is None else (chains,)
+
+
+def welford_init(dim, dtype=torch.float32, device=None, chains=None):
+    """An empty accumulator of ``dim`` coordinates, one per chain where
+    ``chains`` is given."""
     return WelfordState(
         count=torch.zeros((), dtype=dtype, device=device),
-        mean=torch.zeros((dim,), dtype=dtype, device=device),
-        m2=torch.zeros((dim,), dtype=dtype, device=device),
+        mean=torch.zeros(_lead(chains) + (dim,), dtype=dtype, device=device),
+        m2=torch.zeros(_lead(chains) + (dim,), dtype=dtype, device=device),
     )
 
 
 def welford_update(s: WelfordState, x):
-    """Ref: welford_var_estimator.hpp:19-27."""
+    """Ref: welford_var_estimator.hpp:19-27; ``x`` is ``(D,)``, or ``(C, D)``
+    for per-chain accumulators (elementwise, so the same formula)."""
     count = s.count + 1.0
     delta = x - s.mean
     mean = s.mean + delta / count
@@ -97,20 +108,22 @@ class WelfordCovState(NamedTuple):
     m2: torch.Tensor  # (dim, dim)
 
 
-def welford_cov_init(dim, dtype=torch.float32, device=None):
-    """Dense-metric accumulator (ref: welford_covar_estimator.hpp)."""
+def welford_cov_init(dim, dtype=torch.float32, device=None, chains=None):
+    """Dense-metric accumulator (ref: welford_covar_estimator.hpp), one per
+    chain where ``chains`` is given."""
     return WelfordCovState(
         count=torch.zeros((), dtype=dtype, device=device),
-        mean=torch.zeros((dim,), dtype=dtype, device=device),
-        m2=torch.zeros((dim, dim), dtype=dtype, device=device),
+        mean=torch.zeros(_lead(chains) + (dim,), dtype=dtype, device=device),
+        m2=torch.zeros(_lead(chains) + (dim, dim), dtype=dtype, device=device),
     )
 
 
 def welford_cov_update(s: WelfordCovState, x):
+    """``x`` is ``(D,)``, or ``(C, D)``: the outer product is taken per chain."""
     count = s.count + 1.0
     delta = x - s.mean
     mean = s.mean + delta / count
-    m2 = s.m2 + torch.outer(delta, x - mean)
+    m2 = s.m2 + delta[..., :, None] * (x - mean)[..., None, :]
     return WelfordCovState(count, mean, m2)
 
 
@@ -222,15 +235,21 @@ def warn_on_treedepth_saturation(tree_depth, cap, threshold=0.05):
     """Warn when the sampling-phase saturation rate exceeds ``threshold``
     (trajectories are being truncated — raise the cap or re-run with a larger
     ``max_depth`` ceiling)."""
+    return warn_on_saturation_rate(treedepth_saturation(tree_depth, cap), cap, threshold, stacklevel=3)
+
+
+def warn_on_saturation_rate(rate, cap, threshold=0.05, stacklevel=2):
+    """The warning of ``warn_on_treedepth_saturation`` for a hit rate counted
+    by the caller (the chunked sampler counts each chunk against the cap it
+    ran at); returns ``rate``."""
     import warnings
 
-    rate = treedepth_saturation(tree_depth, cap)
     if rate > threshold:
         warnings.warn(
             f"NUTS tree-depth cap {cap} was hit on {100.0 * rate:.1f}% of "
             f"transitions (> {100.0 * threshold:.0f}%); trajectories are "
             "being truncated — raise max_depth (or the auto_depth ceiling)",
-            stacklevel=2,
+            stacklevel=stacklevel,
         )
     return rate
 

@@ -23,11 +23,17 @@ one host synchronisation per leaf.)
 
 All randomness comes through a ``ChainNoise`` object, so a test can replace it
 with a replay of numbers made elsewhere.
+
+The inverse metric is shared by all chains (``(D,)`` diagonal, ``(D, D)``
+dense: the pooled sampler's) or one per chain (``sample_nuts``'s per-chain
+adaptation): a ``Metric`` says which, since a ``(C, D)`` per-chain diagonal
+and a ``(D, D)`` shared dense metric are both 2-D.  A bare tensor is read as a
+shared metric.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -113,12 +119,51 @@ class LogpGrad:
         return logp.detach(), grad
 
 
+class Metric(NamedTuple):
+    """An inverse metric M^-1 with its kind explicit: ``inv_mass`` is ``(D,)``
+    or, one per chain, ``(C, D)`` where ``dense`` is False (Stan's diag_e);
+    ``(D, D)`` or, one per chain, ``(C, D, D)`` where it is True (dense_e).
+    ``chol`` is the lower Cholesky factor of a dense ``inv_mass``, made once
+    by ``make_metric`` (None for a diagonal one)."""
+
+    inv_mass: torch.Tensor
+    dense: bool
+    chol: Optional[torch.Tensor] = None
+
+
+def make_metric(inv_mass, dense):
+    """A ``Metric`` for ``inv_mass`` of the given kind, a dense one factored
+    here, once (the sampler makes one when a warmup window ends)."""
+    return Metric(inv_mass, bool(dense), torch.linalg.cholesky(inv_mass) if dense else None)
+
+
+def as_metric(inv_mass):
+    """A ``Metric`` as it is, or a bare tensor read as a shared metric:
+    ``(D,)`` diagonal, ``(D, D)`` dense."""
+    if isinstance(inv_mass, Metric):
+        return inv_mass
+    return Metric(inv_mass, inv_mass.ndim == 2)
+
+
+def _per_chain(t, r):
+    """A per-chain ``(C, D)`` factor shaped against momenta ``(C, ..., D)``."""
+    return t.reshape(t.shape[:1] + (1,) * (r.ndim - 2) + t.shape[1:])
+
+
 def velocity(inv_mass, r):
-    """M^-1 r for momenta ``(..., D)``; ``inv_mass`` is (D,) diagonal or
-    (D, D) dense (Stan's diag_e / dense_e metrics), shared by all chains."""
-    if inv_mass.ndim == 2:
-        return r @ inv_mass.mT
-    return inv_mass * r
+    """M^-1 r for momenta ``(..., D)`` (``(C, ..., D)`` under a per-chain
+    metric); ``inv_mass`` is a ``Metric`` or a bare shared tensor, (D,)
+    diagonal or (D, D) dense (Stan's diag_e / dense_e metrics)."""
+    m = as_metric(inv_mass)
+    im = m.inv_mass
+    if m.dense:
+        if im.ndim == 2:
+            return r @ im.mT
+        c, d = r.shape[0], r.shape[-1]
+        return torch.bmm(r.reshape(c, -1, d), im.mT).reshape(r.shape)
+    if im.ndim == 2:
+        return _per_chain(im, r) * r
+    return im * r
 
 
 velocity_batch = velocity
@@ -130,13 +175,16 @@ def kinetic_energy(inv_mass, r):
 
 def sample_momentum(noise, inv_mass, shape, site="momentum"):
     """r ~ N(0, M) with M = inv_mass^-1: diag -> z/sqrt(im); dense -> L^-T z
-    with L = chol(inv_mass) (so cov(r) = L^-T L^-1 = M).  ``shape`` is
-    ``(C, D)``."""
+    with L = chol(inv_mass) (so cov(r) = L^-T L^-1 = M), the factor taken
+    from the ``Metric`` where it carries one.  ``shape`` is ``(C, D)``."""
     z = noise.normal(tuple(shape), site=site)
-    if inv_mass.ndim == 2:
-        chol = torch.linalg.cholesky(inv_mass)
-        return torch.linalg.solve_triangular(chol.mT, z.mT, upper=True).mT
-    return z / torch.sqrt(inv_mass)
+    m = as_metric(inv_mass)
+    if m.dense:
+        chol = m.chol if m.chol is not None else torch.linalg.cholesky(m.inv_mass)
+        if chol.ndim == 2:
+            return torch.linalg.solve_triangular(chol.mT, z.mT, upper=True).mT
+        return torch.linalg.solve_triangular(chol.mT, z[..., None], upper=True)[..., 0]
+    return z / torch.sqrt(m.inv_mass)
 
 
 def _col(eps):

@@ -7,15 +7,16 @@ step size and metric are shared.  Pooling has no analog in Stan (which adapts
 per chain); sharing the metric across chains is statistically more efficient
 when running hundreds of chains.
 
-Ported: ``run_pooled_chains`` on one device (``axis_name=None``).  The
-chunked variant, the pooling across devices and the segment memo follow with
-``parallel/``.
+Ported: ``run_pooled_chains`` and ``run_pooled_chains_chunked`` on one
+device (``axis_name=None``, ``mesh=None``); the pooling across devices follows
+with ``parallel/``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from math_tpu_torch.config import get_config
@@ -35,6 +36,7 @@ class PooledResult(NamedTuple):
     max_depth: int = 10  # sampling-phase cap actually used
     n_grad_calls: int = 0  # chain-batched gradient evaluations of the whole run
     final_state: Optional[IntegratorState] = None
+    chunk_caps: tuple = ()  # run_pooled_chains_chunked: the cap each warmup, then sampling, chunk ran at
 
 
 def _welford_merge_batch(wf: adapt.WelfordState, zs, axis_name=None):
@@ -67,14 +69,17 @@ def init_pooled(noise, z0s, logp_grad):
 
 
 def warmup_pooled(noise, states, da, wf, inv_mass, logp_grad, in_slow, window_end, *,
-                  max_depth, target_accept):
-    """Pooled warmup over the steps of the (numpy) schedule."""
+                  max_depth, target_accept, depths=None):
+    """Pooled warmup over the steps of the (numpy) schedule; each step's tree
+    depths ``(C,)`` are appended to the list ``depths`` where one is given."""
     dim = states.z.shape[1]
     dt, dev = states.z.dtype, states.z.device
     for slow, win_end in zip(in_slow, window_end):
         eps = torch.exp(da.log_eps)
         states, stats = nuts_kernel(noise, states, logp_grad, eps, inv_mass, max_depth=max_depth)
         da = adapt.da_update(da, stats.accept_prob.mean(0), target=target_accept)
+        if depths is not None:
+            depths.append(stats.tree_depth)
         if slow:
             wf = _welford_merge_batch(wf, states.z)
         if win_end:
@@ -102,7 +107,7 @@ def sample_pooled(noise, states, logp_grad, eps, inv_mass, num_samples, *, max_d
     return states, zs, stats
 
 
-def _pooled_result(zs, stats, eps_final, inv_mass, max_depth, n_grad_calls, final_state):
+def _pooled_result(zs, stats, eps_final, inv_mass, max_depth, n_grad_calls, final_state, chunk_caps=()):
     # (num_samples, chains, ...) -> (chains, num_samples, ...)
     stats = NutsStats(*(f.swapaxes(0, 1) for f in stats))
     return PooledResult(
@@ -117,6 +122,7 @@ def _pooled_result(zs, stats, eps_final, inv_mass, max_depth, n_grad_calls, fina
         max_depth=max_depth,
         n_grad_calls=n_grad_calls,
         final_state=final_state,
+        chunk_caps=tuple(chunk_caps),
     )
 
 
@@ -161,3 +167,117 @@ def run_pooled_chains(
             noise, states, logp_grad, eps_final, inv_mass, num_samples, max_depth=max_depth
         )
     return _pooled_result(zs, stats, eps_final, inv_mass, max_depth, logp_grad.calls, states)
+
+
+def run_pooled_chains_chunked(
+    rng,
+    z0s,
+    logdensity_fn: Callable,
+    *,
+    args=(),
+    num_warmup: int,
+    num_samples: int,
+    max_depth: int = 10,
+    target_accept: float = 0.8,
+    warmup_chunk: int = 100,
+    sample_chunk: int = 100,
+    mesh=None,
+    axis: str = "chain",
+    auto_depth: bool = False,
+    depth_probe: Optional[int] = None,
+    depth_margin: int = 2,
+    warmup_start_cap: int = 6,
+    treedepth_warn_threshold: float = 0.05,
+    device=None,
+) -> PooledResult:
+    """``run_pooled_chains`` as a host loop over warmup and sampling chunks,
+    with the tree-depth cap re-chosen between chunks (ref:
+    pooled.py:346-547).
+
+    At a fixed cap (``auto_depth=False``) the draws equal
+    ``run_pooled_chains``'s from the same generator, bit for bit: the chunks
+    run the same operations in the same order and the one generator is
+    carried across them, never re-seeded.
+
+    ``auto_depth=True``: warmup starts at ``min(max_depth,
+    warmup_start_cap)``; after each warmup chunk but the last the cap is
+    re-chosen, up or down within ``max_depth``, from the tree depths of that
+    chunk's last 50 steps (``adapt.choose_depth_cap``); ``depth_probe``
+    splits a chunk at that step, so that a re-size reads it.  The sampling
+    phase then re-sizes from a pilot of the first 100 draws (as many as the
+    chunk that ends there holds): where the pilot hit its own cap on more than
+    ``treedepth_warn_threshold`` of its transitions, the cap goes up by at
+    least one and another pilot of 100 draws re-checks (the draws are kept).
+    The reference takes each warmup decision one chunk later (it reads a
+    chunk's depths only after the next chunk is dispatched, to hide its
+    relay's round trip); with no such lag here the port re-sizes one chunk
+    earlier.  The saturation warning counts each sampling chunk against the
+    cap that chunk ran at (as ``infer/resume.py`` does), where the reference
+    counts every draw against the final cap, so that the truncation an
+    escalation detected still warns.  ``PooledResult.max_depth`` is the final
+    cap, ``chunk_caps`` the cap of every chunk.
+
+    ``mesh=`` (chains sharded over devices) is not ported yet.
+    """
+    if mesh is not None:
+        raise NotImplementedError("run_pooled_chains_chunked over a mesh is not ported yet")
+    device = torch.device(get_config().device if device is None else device)
+    z0s = z0s.to(device)
+    args = tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
+    noise = rng if hasattr(rng, "normal") else ChainNoise(rng, device, z0s.dtype)
+    logp_grad = LogpGrad(logdensity_fn, args)
+    in_slow, window_end = adapt.warmup_schedule(num_warmup)
+    cap = max(2, warmup_start_cap) if auto_depth and warmup_start_cap < max_depth else max_depth
+    probe = min(depth_probe, num_warmup) if auto_depth and depth_probe is not None else 0
+    caps = []
+
+    with torch.no_grad():
+        states, da, wf, inv_mass = init_pooled(noise, z0s, logp_grad)
+        s = 0
+        while s < num_warmup:
+            e = min(s + warmup_chunk, num_warmup)
+            if auto_depth and s < probe < e:
+                e = probe
+            depths = []
+            states, da, wf, inv_mass = warmup_pooled(
+                noise, states, da, wf, inv_mass, logp_grad, in_slow[s:e], window_end[s:e],
+                max_depth=cap, target_accept=target_accept, depths=depths,
+            )
+            caps.append(cap)
+            s = e
+            if auto_depth and s < num_warmup:  # from the chunk's last 50 steps
+                cap = adapt.choose_depth_cap(torch.stack(depths[-50:]).cpu().numpy(), max_depth, depth_margin)
+        eps_final = torch.exp(da.log_eps_bar) if num_warmup > 0 else torch.exp(da.log_eps)
+
+        zs_parts, stats_parts = [], []
+        hits = total = done = 0
+        pilot_end = min(100, num_samples) if auto_depth else 0
+        piloting = auto_depth
+        while done < num_samples:
+            n = min(sample_chunk, num_samples - done)
+            if piloting and done < pilot_end:
+                n = min(n, pilot_end - done)
+            states, zs, stats = sample_pooled(noise, states, logp_grad, eps_final, inv_mass, n, max_depth=cap)
+            zs_parts.append(zs)
+            stats_parts.append(stats)
+            caps.append(cap)
+            done += n
+            depth = stats.tree_depth.cpu().numpy()
+            hits += int((depth >= cap).sum())
+            total += depth.size
+            if piloting and done == pilot_end and done < num_samples:
+                new_cap = adapt.choose_depth_cap(depth, max_depth, depth_margin)
+                if float(np.mean(depth >= cap)) > treedepth_warn_threshold and cap < max_depth:
+                    new_cap = max(new_cap, cap + 1)
+                    pilot_end = min(done + 100, num_samples)  # re-pilot
+                else:
+                    piloting = False
+                cap = new_cap
+        if not zs_parts:  # num_samples == 0
+            _, zs, stats = sample_pooled(noise, states, logp_grad, eps_final, inv_mass, 0, max_depth=cap)
+            zs_parts, stats_parts = [zs], [stats]
+    zs = torch.cat(zs_parts, 0)
+    stats = NutsStats(*(torch.cat(f, 0) for f in zip(*stats_parts)))
+    if auto_depth and total:
+        adapt.warn_on_saturation_rate(hits / total, cap, treedepth_warn_threshold)
+    return _pooled_result(zs, stats, eps_final, inv_mass, cap, logp_grad.calls, states, caps)

@@ -10,13 +10,16 @@ sources:
   both products on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``), taken
   transposed with the chains as the rows of the product, for ``D <= 63`` (and
   ``K <= 8`` categories); ``glm_fused_kernel`` / ``glm_ordered_kernel``,
-  float32 FMAs, for the wider shapes (and the ordered ``D`` 57-63 at ``K``
-  6-8, whose block does not fit shared memory).  ``glm_tile_plan`` picks the route and
-  the tile by shape alone;
+  float32 FMAs with the features in slices of 64, for every wider shape (and
+  the ordered ``D`` 57-63 at ``K`` 6-8, whose block does not fit shared
+  memory).  ``glm_tile_plan`` picks the route and the tile by shape alone;
 - ``glm_categorical_kernel`` (``_categorical_kernel``),
   ``csrc/glm_categorical.cu``: the categorical-logit GLM, ``logp``,
-  ``galpha``, ``gbeta``, its two products on the tensor cores in 3xTF32;
-  ``categorical_tile_plan`` picks its tile.
+  ``galpha``, ``gbeta``, its two products on the tensor cores in 3xTF32,
+  where ``categorical_tile_plan`` finds a tile (``K <= 64`` and ``D`` up to
+  its instances); every other shape goes to ``glm_categorical_wide_kernel``
+  in ``csrc/glm_fused.cu`` (float32 FMAs, ``D`` in slices, the classes in
+  tiles, an online log-sum-exp).  ``categorical_route`` picks by shape alone.
 
 For the four families one pass over ``x`` gives, per chain,
 
@@ -30,11 +33,18 @@ compute the ``propto=True`` form, as the JAX dispatchers do.
 
 Rules: on a CUDA tensor each ``*_parts`` wrapper launches its kernel or
 raises; it takes its plain version (``*_parts_reference``) only for tensors
-that lie on the CPU.  There are no dispatch thresholds: those of the JAX
-package were measured on another chip and are not carried over.  ``LAUNCHES``
-counts launches of the tensor-core kernels per family (and the categorical
-kernel's), ``LAUNCHES_FMA`` those of the float32 kernels, ``PLAIN_CALLS`` calls
-of the plain version, so a run can show which one it went through.
+that lie on the CPU.  No size is refused: every shape has a kernel.  The
+``*_parts`` wrappers are strict about layout (float32, contiguous; ``y`` int32
+for the ordered and categorical kernels; ``x`` and ``y`` 16-byte aligned on the
+tensor-core routes, whose row tiles are bulk copies) and raise on anything
+else; the ``*_chains`` dispatchers first lay ``x`` and ``y`` out as the kernels
+take them (``kernel_layout``), so they refuse no layout and no integer type.
+There are no dispatch thresholds: those of the JAX package were measured on
+another chip and are not carried over.  ``LAUNCHES`` counts launches of the
+tensor-core kernels per family (and the categorical kernel's),
+``LAUNCHES_FMA`` those of the float32 kernels, ``PLAIN_CALLS`` calls of the
+plain version, ``LAYOUT_COPIES`` the dispatcher calls that had to copy ``x``
+or ``y``, so a run can show which one it went through.
 
 Differentiation (ref: pallas_glm.py:219-237): at first order each
 ``autograd.Function`` reads the gradients off the partials its forward pass
@@ -66,8 +76,9 @@ CATEGORICAL = "categorical_logit"
 KERNEL_FAMILIES = FAMILIES + (ORDERED, CATEGORICAL)
 
 LAUNCHES = {f: 0 for f in KERNEL_FAMILIES}
-LAUNCHES_FMA = {f: 0 for f in FAMILIES + (ORDERED,)}
+LAUNCHES_FMA = {f: 0 for f in KERNEL_FAMILIES}
 PLAIN_CALLS = {f: 0 for f in KERNEL_FAMILIES}
+LAYOUT_COPIES = {f: 0 for f in KERNEL_FAMILIES}
 
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one block may use on sm_90
 SM_SMEM_BYTES = 233_472  # shared memory of one SM on sm_90; each resident block also takes 1 KB
@@ -80,9 +91,9 @@ def _up128(b):
 def reset_counts():
     for f in KERNEL_FAMILIES:
         LAUNCHES[f] = 0
-        PLAIN_CALLS[f] = 0
-    for f in LAUNCHES_FMA:
         LAUNCHES_FMA[f] = 0
+        PLAIN_CALLS[f] = 0
+        LAYOUT_COPIES[f] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +149,8 @@ _cat_lib = None
 
 
 def _library():
-    """The kernels of ``csrc/glm_fused.cu`` (four families, ordered), built at first use."""
+    """The kernels of ``csrc/glm_fused.cu`` (four families, ordered, the
+    float32 categorical route), built at first use."""
     global _lib
     if _lib is None:
         lib = _build.load_library("glm_fused")
@@ -146,12 +158,8 @@ def _library():
         lib.glm_fused_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
-        lib.glm_fused_smem_bytes.restype = ctypes.c_longlong
-        lib.glm_fused_smem_bytes.argtypes = [ctypes.c_int]
         lib.glm_ordered_launch.restype = ctypes.c_int
         lib.glm_ordered_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.glm_ordered_smem_bytes.restype = ctypes.c_longlong
-        lib.glm_ordered_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.glm_tc_launch.restype = ctypes.c_int
         lib.glm_tc_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.glm_tc_smem_bytes.restype = ctypes.c_longlong
@@ -162,6 +170,10 @@ def _library():
         lib.glm_tc_max_d.argtypes = []
         lib.glm_tc_max_categories.restype = ctypes.c_int
         lib.glm_tc_max_categories.argtypes = []
+        lib.glm_categorical_wide_launch.restype = ctypes.c_int
+        lib.glm_categorical_wide_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.glm_categorical_wide_smem_bytes.restype = ctypes.c_longlong
+        lib.glm_categorical_wide_smem_bytes.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -202,10 +214,10 @@ def _check_cuda_layout(who, y, floats):
             raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def row_blocks_for(n, c, sms):
-    """Blocks along the rows of the float32 kernels 1 and 2: about two blocks
-    per SM over all 64-chain tiles."""
-    chain_tiles = (c + 63) // 64
+def row_blocks_for(n, c, sms, cols=64):
+    """Blocks along the rows of the float32 kernels: about two blocks per SM
+    over all column tiles (``cols`` chains a tile)."""
+    chain_tiles = -(-c // cols)
     n_tiles = (n + 63) // 64
     return max(1, min(n_tiles, (2 * sms + chain_tiles - 1) // chain_tiles))
 
@@ -292,8 +304,10 @@ def glm_fused_parts(family, y, x, alpha, beta, extra=None):
     """``(logp (C,), ga (C,), gb (K, C), ge (C,) or None)`` for ``y (N,)``,
     ``x (N, K)``, ``alpha (C,)``, ``beta (K, C)``, ``extra (C,)``.
 
-    CUDA tensors go to the hand-written kernel (float32, contiguous, else this
-    raises); CPU tensors go to ``glm_fused_parts_reference``.
+    CUDA tensors go to the hand-written kernel (float32, contiguous, and x and
+    y 16-byte aligned on the tensor-core route, else this raises; the
+    dispatchers lay them out first); CPU tensors go to
+    ``glm_fused_parts_reference``.
     """
     if family not in _FAMILY_CODE:
         raise ValueError(f"unknown GLM family {family!r}")
@@ -331,8 +345,6 @@ def glm_fused_parts(family, y, x, alpha, beta, extra=None):
         LAUNCHES[family] += 1
         return out[0], out[1], out[3:], (out[2] if has_extra else None)
     lib = _library()
-    if lib.glm_fused_smem_bytes(k) > MAX_SMEM_BYTES:
-        raise ValueError(f"glm_fused_parts: K={k} columns need more shared memory than a block has")
     rb = plan["row_blocks"]
     with torch.cuda.device(x.device):
         partials = torch.empty((rb, k + 3, c), dtype=torch.float32, device=x.device)
@@ -407,7 +419,52 @@ class GlmFused(torch.autograd.Function):
         return None, gy, gx, g_alpha, g_beta, g_extra
 
 
+def _laid_out(t):
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def kernel_layout(family, x, y):
+    """``(x, y)`` as the kernels take them, each copied only where it is not
+    already so: ``x`` contiguous and 16-byte aligned (a fresh allocation is);
+    ``y`` the same, and of the kernel's type: an integer ``y`` of any width
+    becomes int32 for the ordered and categorical kernels, and the families'
+    ``y`` takes the type of ``x``.  A floating ``y`` of the ordered or
+    categorical GLM is left for the wrapper to refuse.  Each call that copies
+    anything counts once in ``LAYOUT_COPIES[family]``.  The dispatchers call it
+    for CUDA tensors; a caller that passes an aligned, contiguous ``x`` and a
+    ``y`` of the kernel's type pays for no copy.  The copy of ``x`` is made
+    where autograd sees it, so its cotangent reaches the caller's ``x``."""
+    copied = False
+    if not _laid_out(x):
+        x = x.clone(memory_format=torch.contiguous_format)
+        copied = True
+    if family in FAMILIES:
+        want = x.dtype
+    elif y.dtype.is_floating_point or y.dtype.is_complex or y.dtype == torch.bool:
+        want = y.dtype
+    else:
+        want = torch.int32
+    if y.dtype != want:
+        y = y.to(want, memory_format=torch.contiguous_format)
+        copied = True
+    elif not _laid_out(y):
+        y = y.clone(memory_format=torch.contiguous_format)
+        copied = True
+    if copied:
+        LAYOUT_COPIES[family] += 1
+    return x, y
+
+
+def _for_kernel(family, x, y):
+    """``kernel_layout`` where a kernel will read the tensors (CUDA); the
+    plain version on the CPU takes any layout."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda" and isinstance(y, torch.Tensor):
+        return kernel_layout(family, x, y)
+    return x, y
+
+
 def _fused(family, y, x, alpha, beta, extra=None):
+    x, y = _for_kernel(family, x, y)
     return GlmFused.apply(
         family, y, x, alpha.contiguous(), beta.contiguous(), None if extra is None else extra.contiguous()
     )
@@ -502,7 +559,8 @@ def ordered_logistic_glm_parts(y, x, beta, cuts):
     ``propto=True`` form, valid data assumed (as the JAX dispatcher does).
 
     CUDA tensors go to the hand-written kernel (``y`` int32, the rest float32,
-    all contiguous, else this raises); CPU tensors go to
+    all contiguous, and x and y 16-byte aligned on the tensor-core route, else
+    this raises; the dispatcher lays them out first); CPU tensors go to
     ``ordered_logistic_glm_parts_reference``.
     """
     who = "ordered_logistic_glm_parts"
@@ -534,8 +592,6 @@ def ordered_logistic_glm_parts(y, x, beta, cuts):
         LAUNCHES[ORDERED] += 1
         return out[0], out[1 : 1 + d], out[1 + d :]
     lib = _library()
-    if lib.glm_ordered_smem_bytes(d, kc + 1) > MAX_SMEM_BYTES:
-        raise ValueError(f"{who}: D={d} columns and K={kc + 1} categories need more shared memory than a block has")
     rb = plan["row_blocks"]
     with torch.cuda.device(x.device):
         partials = torch.empty((rb, rows, c), dtype=torch.float32, device=x.device)
@@ -582,6 +638,7 @@ def ordered_logistic_glm_lpmf_chains(y, x, beta, cuts):
     Assumes valid data (like the other chains dispatchers); mirrors
     dists.ordered_logistic_glm_lpmf(..., propto=True) per chain, with the
     kernel's -/+1e4 boundary cuts.  ref: pallas_glm.py:868-882."""
+    x, y = _for_kernel(ORDERED, x, y)
     return OrderedGlmFused.apply(y, x, beta.contiguous(), cuts.contiguous())
 
 
@@ -589,7 +646,7 @@ def ordered_logistic_glm_lpmf_chains(y, x, beta, cuts):
 # categorical_logit_glm (ref: pallas_glm.py:640-808 and the dispatcher :885-905)
 # ---------------------------------------------------------------------------
 
-MAX_CLASSES = 64  # one chain's classes share a column tile of the kernel
+MAX_CLASSES = 64  # the tensor-core kernel: one chain's classes share a column tile
 
 # The kernel's instantiations (wgs, mt): wgs warpgroups of an n40 column slice
 # each (a tile of 40*wgs columns) for mt 64-row tiles of [gbeta; galpha]
@@ -642,6 +699,43 @@ def categorical_tile_plan(n, d, c, k, sms):
     return plan
 
 
+WIDE_COLUMNS = 64  # columns of a tile of the float32 categorical kernel
+
+
+def categorical_wide_smem_bytes(cpt):
+    """Bytes of shared memory one block of the float32 categorical kernel
+    needs: the eta / theta' tile, a beta and an x slice (64 x 64 each), the
+    running maximum and sum (64 x ``cpt``), y."""
+    return 4 * (3 * 64 * WIDE_COLUMNS + 2 * 64 * cpt + 64)
+
+
+def categorical_wide_plan(n, d, c, k, sms):
+    """The float32 categorical kernel's tile, any ``d`` and ``k``: ``cpt``
+    chains of ``kt`` classes a 64-column tile (all ``k`` classes of
+    ``64 // k`` chains where ``k <= 64``; else one chain, its classes in
+    ``nkt`` tiles of at most 64 and of nearly equal width), ``column_tiles``,
+    ``row_blocks`` (about two blocks an SM), ``smem``."""
+    if k <= WIDE_COLUMNS:
+        cpt, kt = WIDE_COLUMNS // k, k
+    else:
+        nkt = -(-k // WIDE_COLUMNS)
+        cpt, kt = 1, -(-k // nkt)
+    return {"route": "fma", "cpt": cpt, "kt": kt, "nkt": -(-k // kt), "column_tiles": -(-c // cpt),
+            "row_blocks": row_blocks_for(n, c, sms, cols=cpt), "smem": categorical_wide_smem_bytes(cpt)}
+
+
+def categorical_route(n, d, c, k, sms):
+    """The categorical kernel's route for ``x (n, d)`` and ``c`` chains of
+    ``k`` classes, by shape alone: the tensor cores (``route``
+    ``"tensor_cores"`` and ``categorical_tile_plan``'s tile) wherever that
+    plan takes the shape, else the float32 kernel (``categorical_wide_plan``).
+    Never None."""
+    plan = categorical_tile_plan(n, d, c, k, sms) if k <= MAX_CLASSES else None
+    if plan is not None:
+        return {"route": "tensor_cores", **plan}
+    return categorical_wide_plan(n, d, c, k, sms)
+
+
 def _categorical_thetap(y, x, alpha, beta):
     """``(eta (C, N, K), onehot (N, K), theta' (C, N, K))``; ``y`` is clamped
     into 1..K as the kernel does."""
@@ -669,9 +763,11 @@ def categorical_logit_glm_parts(y, x, alpha, beta):
     classes 1..K, ``x (N, D)``, ``alpha (C, K)``, ``beta (C, D, K)``;
     ``propto=True`` form, valid data assumed.
 
-    CUDA tensors go to the hand-written kernel (``y`` int32, the rest float32,
-    all contiguous, x and y 16-byte aligned, K <= 64 and a shape the tile plan
-    takes, else this raises); CPU tensors go to
+    CUDA tensors go to a hand-written kernel by ``categorical_route``: the
+    tensor-core kernel, or the float32 one for the shapes the former does not
+    take (``y`` int32, the rest float32, all contiguous, and x and y 16-byte
+    aligned on the tensor-core route, else this raises; the dispatcher lays
+    them out first); CPU tensors go to
     ``categorical_logit_glm_parts_reference``.
     """
     who = "categorical_logit_glm_parts"
@@ -692,28 +788,38 @@ def categorical_logit_glm_parts(y, x, alpha, beta):
     _check_cuda_layout(who, y, [("x", x), ("alpha", alpha), ("beta", beta)])
     if n < 1 or d < 1 or c < 1 or k < 1:
         raise ValueError(f"{who}: need N, D, C, K >= 1; got {n}, {d}, {c}, {k}")
-    if k > MAX_CLASSES:
-        raise ValueError(f"{who}: K={k} classes; the kernel takes at most {MAX_CLASSES} (one chain's classes per column tile)")
 
-    _check_aligned(who, [("x", x), ("y", y)])
-    plan = categorical_tile_plan(n, d, c, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    if plan is None:
-        raise ValueError(f"{who}: D={d} columns with K={k} classes need more shared memory or registers than a block has")
-    lib = _categorical_library()
-    n_cols, cpt, stages, rb = plan["n_cols"], plan["cpt"], plan["stages"], plan["row_blocks"]
-    if lib.glm_categorical_smem_bytes(n_cols, d, cpt, stages) != plan["smem"] or lib.glm_categorical_chains_per_tile(k, n_cols) != cpt:
-        raise RuntimeError(f"{who}: the tile plan disagrees with the kernel's layout")
+    plan = categorical_route(n, d, c, k, _sm_count(x.device))
     m = c * (1 + k + d * k)
     with torch.cuda.device(x.device):
-        partials = torch.empty((rb, m), dtype=torch.float32, device=x.device)
+        partials = torch.empty((plan["row_blocks"], m), dtype=torch.float32, device=x.device)
         out = torch.empty((m,), dtype=torch.float32, device=x.device)
-        err = lib.glm_categorical_launch(
-            y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            n, d, c, k, plan["wgs"], plan["mt"], cpt, stages, rb, torch.cuda.current_stream().cuda_stream,
-        )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan["route"] == "tensor_cores":
+        _check_aligned(who, [("x", x), ("y", y)])
+        lib = _categorical_library()
+        n_cols, cpt, stages = plan["n_cols"], plan["cpt"], plan["stages"]
+        if lib.glm_categorical_smem_bytes(n_cols, d, cpt, stages) != plan["smem"] or lib.glm_categorical_chains_per_tile(k, n_cols) != cpt:
+            raise RuntimeError(f"{who}: the tile plan disagrees with the kernel's layout")
+        with torch.cuda.device(x.device):
+            err = lib.glm_categorical_launch(
+                y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                n, d, c, k, plan["wgs"], plan["mt"], cpt, stages, plan["row_blocks"], stream,
+            )
+        counter = LAUNCHES
+    else:
+        lib = _library()
+        if lib.glm_categorical_wide_smem_bytes(plan["cpt"]) != plan["smem"]:
+            raise RuntimeError(f"{who}: the tile plan disagrees with the float32 kernel's layout")
+        with torch.cuda.device(x.device):
+            err = lib.glm_categorical_wide_launch(
+                y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
+                n, d, c, k, plan["cpt"], plan["kt"], plan["row_blocks"], stream,
+            )
+        counter = LAUNCHES_FMA
     if err != 0:
-        raise RuntimeError(f"glm_categorical kernel launch failed: CUDA error {err}")
-    LAUNCHES[CATEGORICAL] += 1
+        raise RuntimeError(f"glm_categorical kernel launch failed ({plan['route']} route): CUDA error {err}")
+    counter[CATEGORICAL] += 1
     return out[:c], out[c : c + c * k].view(c, k), out[c + c * k :].view(c, d, k)
 
 
@@ -748,4 +854,5 @@ def categorical_logit_glm_lpmf_chains(y, x, alpha, beta):
     """y (N,) int 1..K, x (N, D), alpha (C, K), beta (C, D, K) -> (C,).
     Mirrors dists.categorical_logit_glm_lpmf(..., propto=True) per chain.
     ref: pallas_glm.py:885-905."""
+    x, y = _for_kernel(CATEGORICAL, x, y)
     return CategoricalGlmFused.apply(y, x, alpha.contiguous(), beta.contiguous())
