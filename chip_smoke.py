@@ -89,8 +89,34 @@ float64 plain version, and times the wide shapes at N = 100,000, C = 256
 beside their bounds and the two products in float32 cuBLAS.  ``kernels_chol`` prints the block
 kernel's ``clock64`` stamps: how its time splits between factor and inverse.
 
+BASELINE configs 3 and 5 as their benches drive them, after the paths above,
+each with the counts set to 0 just before it and read just after:
+
+- ``radon_path``: the radon model (85 counties, 919 observations) under
+  ``run_pooled_chains_chunked``, 2048 chains, ``auto_depth`` at a ceiling of
+  10, 200 warmup + 200 samples (the bench's 300 + 500 cut in length only):
+  wall, gradient calls, ms per call, the cap and wall of every chunk, tree
+  depth and the deepest lane's leapfrogs, ESS / R-hat on the five monitored
+  coordinates, divergences and saturation; recovery of the generating means;
+  ``logp`` and its gradient at the final positions equal bit for bit when
+  computed twice (the segment products have no atomics); no hand kernel runs;
+- ``advi_radon``: ADVI meanfield and fullrank on the same model (Stan's eta
+  ladder, ``tol_rel_obj`` 0.01, 10,000 steps the cap), each against the NUTS
+  draws: steps per second, steps run, ELBO, the eta chosen, z-scores and sd
+  ratios on the monitored coordinates;
+- ``resume_gp``: ``sample_nuts_checkpointed`` on the 2000-point marginal GP
+  at the bench's settings (32 chains, depth 3, chunks of 30, warmup segments
+  of 25), 50 + 60, straight and then interrupted after 30 samples and
+  resumed: equal bit for bit, the native draw store read back, checkpoint
+  time and size; the block kernel launched 16 times a gradient call;
+- ``smc_gp``: ``smc_tempered_stagewise`` on the same model (64 particles in
+  batches of 32, one mutation step of depth 3, ``target_rel_ess`` 0.3): the
+  temperature ladder, log evidence, particle moments against ``gp_path``'s
+  NUTS draws, peak memory; the block kernel launched 16 times a 32-row
+  evaluation.
+
 With ``--profile`` further phases trace a few sampling transitions of the
-GLM, ordinal and multinomial paths and a few gradient calls of the GP path
+GLM, ordinal, multinomial and radon paths and a few gradient calls of the GP path
 with ``torch.profiler`` and print the device time by kernel.
 
 Without a GPU the sampler phases can be rehearsed on the CPU at a small size:
@@ -99,16 +125,21 @@ device="cpu", dtype=torch.float64)`` after ``update_config(cholesky_block_size=1
 ``drive_ordinal_sampler(x, *ordinal_data(x), chains=16, num_warmup=100,
 num_samples=50, max_depth=6, seed=0, device="cpu", dtype=torch.float64,
 tol=0.3)`` with ``x = glm_logistic.synthetic_data(4000, 5)[0]``, and
-``drive_categorical_sampler`` alike.
+``drive_categorical_sampler`` alike; ``check_radon(*drive_radon(chains=64,
+device="cpu"))``, ``drive_resume_gp(n=48, chains=8, device="cpu",
+dtype=torch.float64, sigma_tol=0.15)`` (block size 16, as above) and
+``drive_smc_gp(positions, n=48, device="cpu", dtype=torch.float64)``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -117,9 +148,17 @@ import torch.nn.functional as F
 
 from math_tpu_torch import dists, get_config, transforms, update_config
 from math_tpu_torch.diagnostics import convergence
-from math_tpu_torch.infer import run_pooled_chains, run_pooled_chains_chunked, sample_nuts
+from math_tpu_torch.infer import (
+    advi,
+    run_pooled_chains,
+    run_pooled_chains_chunked,
+    sample_nuts,
+    sample_nuts_checkpointed,
+    smc_tempered_stagewise,
+)
+from math_tpu_torch.io import draw_store
 from math_tpu_torch.model import make_log_density
-from math_tpu_torch.models import eight_schools, glm_logistic, gp_regression
+from math_tpu_torch.models import eight_schools, glm_logistic, gp_regression, radon
 from math_tpu_torch.ops import _build, chol_blocked, glm_fused
 from math_tpu_torch.ops import gp as gp_ops
 from math_tpu_torch.ops.cholesky import spd_solve_logdiag_reference
@@ -1747,6 +1786,295 @@ def phase_eight_schools():
          grad_calls=res.n_grad_calls, grad_calls_per_s=res.n_grad_calls / wall)
 
 
+# ---------------------------------------------------------------------------
+# BASELINE configs 3 and 5 as their benches drive them: radon with NUTS and
+# ADVI, the checkpointed sampler and tempered SMC on the marginal GP
+# ---------------------------------------------------------------------------
+
+N_COUNTIES, N_OBS, C_RADON = 85, 919, 2048
+RADON_MONITORED = ("mu_a", "mu_b", "log_sigma_a", "log_sigma_b", "log_sigma_y")  # the first five coordinates
+GP_COORDS = ("log_rho", "log_alpha", "log_sigma")
+
+
+def radon_truth(seed=0):
+    """Means of the generating county effects of ``radon.synthetic_data(85,
+    919, seed)``: its draws repeated in its order (it does not return them)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, N_COUNTIES, N_OBS)
+    rng.integers(0, 2, N_OBS)
+    a_true = 1.5 + 0.3 * rng.normal(size=N_COUNTIES)
+    b_true = -0.7 + 0.2 * rng.normal(size=N_COUNTIES)
+    return float(a_true.mean()), float(b_true.mean())
+
+
+def radon_args(device="cuda", dtype=torch.float32):
+    """The radon data as the sampler's ``args``: tensors on ``device``."""
+    county, x, y = radon.synthetic_data(N_COUNTIES, N_OBS, dtype=np.float32 if dtype == torch.float32 else np.float64)
+    return (torch.tensor(county, device=device), torch.tensor(x, dtype=dtype, device=device),
+            torch.tensor(y, dtype=dtype, device=device))
+
+
+def timed(fn, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_radon(*, chains=C_RADON, num_warmup=200, num_samples=200, max_depth=10, seed=1, device="cuda",
+                dtype=torch.float32):
+    """BASELINE config 3 as ``benches/bench_radon.py:24-66`` runs it, the
+    length cut from 300 + 500 to 200 + 200: ``run_pooled_chains_chunked``
+    with ``auto_depth`` (warmup chunks of 100, the sampling phase one chunk),
+    ``target_accept=0.85``, inits uniform(-1, 1).  200 draws a chain, not
+    fewer: ``log_sigma_b``'s draws are correlated over ~9 transitions, so its
+    split R-hat is ~1.07 at 100 draws a chain and ~1.03 at 200, whatever the
+    number of chains.  Returns ``(res, wall_s, model, args)``."""
+    model = radon.make(N_COUNTIES)
+    args = radon_args(device, dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z0 = 2.0 * torch.rand((chains, model.dim), generator=gen, device=device, dtype=dtype) - 1.0
+    res, wall = timed(lambda: run_pooled_chains_chunked(
+        gen, z0, model.logp, args=args, num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
+        auto_depth=True, target_accept=0.85, warmup_chunk=100, sample_chunk=num_samples, device=device,
+    ), device)
+    require(res.position.shape == (chains, num_samples, model.dim), f"radon: draws of shape {tuple(res.position.shape)}")
+    return res, wall, model, args
+
+
+def check_radon(res, wall, model, args):
+    """The radon path's gates and report.  Limits: divergences < 5%
+    (the other paths' gate); split R-hat < 1.05 on the five monitored
+    coordinates (the usual convergence limit; 2048 chains make it strict);
+    posterior means of ``mu_a`` / ``mu_b`` within 0.1 of the
+    means of the generating county effects (the posterior sd of each is about
+    0.03-0.05 here: 85 counties, county sds 0.3 / 0.2, and the data's own
+    noise in the sample means of 85 effects).  ``logp`` and its gradient at
+    the final positions, computed twice, must be equal bit for bit: no
+    atomics on the path (the one-hot products of ``ops/segment.py``)."""
+    pos = res.position.double().cpu().numpy()
+    require(bool(np.isfinite(pos).all()), "radon: non-finite draws")
+    div_rate = float(res.diverging.double().mean())
+    require(div_rate < 0.05, f"radon: divergence rate {div_rate}")
+    rhat = convergence.split_rhat(pos[..., :5])
+    require(bool(np.all(rhat < 1.05)), f"radon: split R-hat {rhat} on {RADON_MONITORED}")
+    draws = model.transform_draws(res.position)
+    post = {k: float(draws[k].double().mean()) for k in ("mu_a", "mu_b")}
+    truth = dict(zip(("mu_a", "mu_b"), radon_truth()))
+    errs = {k: abs(post[k] - truth[k]) for k in post}
+    require(max(errs.values()) < 0.1, f"radon: posterior means {post} against the generating means {truth}")
+    z = res.position[:, -1, :].contiguous()
+    lp1, g1 = model.logp_and_grad(z, *args)
+    lp2, g2 = model.logp_and_grad(z, *args)
+    repeatable = bool(torch.equal(lp1, lp2) and torch.equal(g1, g2))
+    require(repeatable, "radon: logp or gradient differs between two evaluations at the same positions")
+    cap = res.max_depth
+    return {
+        "chains": pos.shape[0], "num_samples": pos.shape[1], "dim": model.dim, "wall_s": wall,
+        "grad_calls": res.n_grad_calls, "ms_per_grad_call": wall / res.n_grad_calls * 1e3,
+        "chunk_caps": list(res.chunk_caps), "chunk_seconds": list(res.chunk_seconds), "max_depth_used": cap,
+        "step_size": float(res.step_size), "mean_tree_depth": float(res.tree_depth.double().mean()),
+        "mean_lane_leapfrogs_per_transition": float(res.n_leapfrog.double().mean()),
+        "deepest_lane_leapfrogs_per_transition": float(res.n_leapfrog.max(0).values.double().mean()),
+        "divergence_rate": div_rate, "saturation_rate": float((res.tree_depth >= cap).double().mean()),
+        "ess_bulk": dict(zip(RADON_MONITORED, (float(v) for v in convergence.ess_bulk(pos[..., :5])))),
+        "split_rhat": dict(zip(RADON_MONITORED, (float(v) for v in rhat))),
+        "posterior_mean": post, "generating_mean": truth, "abs_err": errs, "logp_grad_bitwise_repeatable": repeatable,
+    }
+
+
+def phase_radon_path():
+    chol_blocked.reset_counts()
+    glm_fused.reset_counts()
+    res, wall, model, args = drive_radon()
+    report = check_radon(res, wall, model, args)
+    ran = {**chol_blocked.LAUNCHES, **chol_blocked.PLAIN_CALLS, **glm_fused.LAUNCHES, **glm_fused.PLAIN_CALLS}
+    require(not any(ran.values()), f"radon_path: a hand kernel or its plain version ran: {ran}")
+    emit("radon_path", **report)
+    return res, model, args
+
+
+def drive_advi_radon(model, args, nuts_position, *, device="cuda", dtype=torch.float32):
+    """ADVI meanfield and fullrank on the radon model as
+    ``benches/bench_radon.py:77-127`` runs it (Stan's eta ladder and
+    relative-ELBO stop, 10,000 steps the cap), each against the NUTS draws on
+    the five monitored coordinates: ``|mean_ADVI - mean_NUTS| / sd_NUTS`` and
+    the sd ratio.  Limits: a finite ELBO; both stop by the tolerance rule
+    before the cap; z below 0.5 NUTS sd on all five coordinates
+    for fullrank, on ``mu_a`` and ``mu_b`` for meanfield (mean-field is known
+    to misplace the weakly identified scales: the bench records it)."""
+    mon, num_steps = 5, 10000
+    nuts = nuts_position[..., :mon].double().reshape(-1, mon).cpu().numpy()
+    nuts_mean, nuts_sd = nuts.mean(0), nuts.std(0)
+    out = {}
+    for method in ("meanfield", "fullrank"):
+        gen = torch.Generator(device=device).manual_seed(2)
+        r, wall = timed(lambda: advi(model.logp, gen, model.dim, args=args, method=method, num_steps=num_steps,
+                                     dtype=dtype, device=device), device)
+        mu = r.mu.double().cpu().numpy()[:mon]
+        cov_sd = torch.sqrt(torch.diagonal(r.L.double() @ r.L.double().T)).cpu().numpy()[:mon]
+        z = np.abs(mu - nuts_mean) / nuts_sd
+        elbo = float(r.final_elbo)
+        require(math.isfinite(elbo), f"advi {method}: final ELBO {elbo}")
+        require(r.converged and r.num_steps_run < num_steps, f"advi {method}: not converged in {r.num_steps_run} steps")
+        gated = z if method == "fullrank" else z[:2]
+        require(bool(np.all(gated < 0.5)), f"advi {method}: z-scores against NUTS {z}")
+        out[method] = {
+            "wall_s": wall, "steps_per_s": r.num_steps_run / wall, "converged": r.converged,
+            "steps_run": r.num_steps_run, "final_elbo": elbo, "eta": r.learning_rate,
+            "eta_trial_elbos": [list(t) for t in r.eta_trial_elbos],
+            "mean_z_by_coord": dict(zip(RADON_MONITORED, (float(v) for v in z))),
+            "sd_ratio_by_coord": dict(zip(RADON_MONITORED, (float(v) for v in cov_sd / nuts_sd))),
+        }
+    return out
+
+
+def phase_advi_radon(model, args, nuts_position):
+    emit("advi_radon", **drive_advi_radon(model, args, nuts_position))
+
+
+def gp_setup(n=N_GP, device="cuda", dtype=torch.float32, jitter=JITTER_GP):
+    x, y = gp_regression.synthetic_data(n, seed=0)
+    model = gp_regression.make_marginal(n, jitter=jitter)
+    return model, torch.tensor(x, dtype=dtype, device=device), torch.tensor(y, dtype=dtype, device=device)
+
+
+def drive_resume_gp(*, n=N_GP, chains=C_GP, num_warmup=50, num_samples=60, first=30, device="cuda",
+                    dtype=torch.float32, sigma_tol=0.03):
+    """Config 5's headline leg as ``benches/bench_gp.py:128-134`` runs it
+    (``sample_nuts_checkpointed``, 32 chains, depth 3, accept 0.75, chunks of
+    30, warmup segments of 25, ``init_radius`` 0.5), the length cut, with a
+    draw store: once straight through, then into a fresh directory to
+    ``first`` samples and the same call again to ``num_samples`` (the protocol
+    of ``tests/test_runtime.py:74``).  Limits: the two position arrays equal
+    bit for bit, the second call resumed, the draw store read back equal to
+    the returned draws, the native writer, mean sigma within ``sigma_tol`` =
+    0.03 of the 0.3 the data were made with (``gp_path``'s limit)."""
+    model, xt, yt = gp_setup(n, device, dtype)
+    kw = dict(args=(xt, yt), num_warmup=num_warmup, num_chains=chains, chunk_size=30, warmup_chunk_size=25,
+              max_depth=3, target_accept=0.75, init_radius=0.5, dtype=dtype, device=device)
+
+    def run(path, samples):
+        gen = torch.Generator(device=device).manual_seed(0)
+        return sample_nuts_checkpointed(model.logp, gen, model.dim, checkpoint_path=os.path.join(path, "ck"),
+                                        num_samples=samples, draw_store_path=os.path.join(path, "draws.mtds"), **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight_dir, resumed_dir = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
+        os.makedirs(straight_dir)
+        os.makedirs(resumed_dir)
+        (pos_a, div_a, info_a), wall_a = timed(lambda: run(straight_dir, num_samples), device)
+        (_, _, info_b1), wall_b1 = timed(lambda: run(resumed_dir, first), device)
+        (pos_b, div_b, info_b2), wall_b2 = timed(lambda: run(resumed_dir, num_samples), device)
+        stored = draw_store.read_draws(os.path.join(resumed_dir, "draws.mtds"))
+        ckpt_bytes = os.path.getsize(os.path.join(resumed_dir, "ck", "state.pt"))
+    equal = bool(np.array_equal(pos_a, pos_b) and np.array_equal(div_a, div_b))
+    require(equal, f"resume_gp: resumed draws differ from the straight run's by up to {np.abs(pos_a - pos_b).max()}")
+    require(info_b2["resumed"] and not info_a["resumed"], "resume_gp: the second call did not resume")
+    store_equal = bool(np.array_equal(stored, pos_b.transpose(1, 0, 2)))
+    require(store_equal, f"resume_gp: the draw store holds {stored.shape} unequal to the returned draws")
+    require(draw_store.native_available(), "resume_gp: the native draw store did not build")
+    require(bool(np.isfinite(pos_a).all()), "resume_gp: non-finite draws")
+    sigma = model.transform_draws(torch.tensor(pos_a))["sigma"].double().numpy()
+    require(abs(sigma.mean() - 0.3) < sigma_tol, f"resume_gp: posterior mean of sigma is {sigma.mean()}")
+    calls = info_a["n_grad_calls"] + info_b1["n_grad_calls"] + info_b2["n_grad_calls"]
+    infos = (info_a, info_b1, info_b2)
+    writes = sum(i["checkpoints_written"] for i in infos)
+    return pos_a, calls, {
+        "chains": chains, "n": n, "num_warmup": num_warmup, "num_samples": num_samples, "first_call_samples": first,
+        "wall_s": {"straight": wall_a, "first": wall_b1, "resumed": wall_b2},
+        "grad_calls": {"straight": info_a["n_grad_calls"], "first": info_b1["n_grad_calls"],
+                       "resumed": info_b2["n_grad_calls"]},
+        "ms_per_grad_call": (wall_a + wall_b1 + wall_b2) / calls * 1e3,
+        "bitwise_equal": equal, "resumed": info_b2["resumed"], "draw_store_equal": store_equal,
+        "draw_store_native": draw_store.native_available(), "checkpoints_written": writes,
+        "checkpoint_write_ms": sum(i["checkpoint_seconds"] for i in infos) / writes * 1e3,
+        "checkpoint_bytes": ckpt_bytes, "step_size": [float(v) for v in info_a["step_size"][:4]],
+        "max_depth_used": info_a["max_depth_used"], "divergence_rate": float(div_a.mean()),
+        "treedepth_hit_rate": info_a["treedepth_hit_rate"], "mean_sigma": float(sigma.mean()),
+        "ess_bulk": dict(zip(GP_COORDS, (float(v) for v in convergence.ess_bulk(pos_a.astype(np.float64))))),
+        "split_rhat": dict(zip(GP_COORDS, (float(v) for v in convergence.split_rhat(pos_a.astype(np.float64))))),
+    }
+
+
+def block_kernel_launches(label, evaluations, n=N_GP):
+    """After a GP phase: the block kernel launched ``ceil(n / B)`` times per
+    32-row log-density evaluation and the plain version never."""
+    nb = -(-n // get_config().cholesky_block_size)
+    launches, plain = chol_blocked.LAUNCHES["chol_inv_block"], chol_blocked.PLAIN_CALLS["chol_inv_block"]
+    require(plain == 0, f"{label}: the plain version ran {plain} times")
+    require(launches == nb * evaluations > 0, f"{label}: {launches} launches for {evaluations} evaluations of {nb} blocks")
+    return launches
+
+
+def phase_resume_gp():
+    chol_blocked.reset_counts()
+    pos, calls, report = drive_resume_gp()
+    launches = block_kernel_launches("resume_gp", calls)
+    emit("resume_gp", **report, kernel_launches=launches, plain_calls=chol_blocked.PLAIN_CALLS["chol_inv_block"])
+    return launches
+
+
+def drive_smc_gp(nuts_position, *, n=N_GP, particles=64, device="cuda", dtype=torch.float32):
+    """Config 5's second leg as ``benches/bench_gp.py:233-237`` runs it
+    (``smc_tempered_stagewise``, ``particle_batch`` 32, one mutation step of
+    depth 3, ``target_rel_ess`` 0.3, seed 2), with 64 particles for the
+    bench's 512.  Counts the 32-row log-density evaluations, with or without
+    a gradient.  Limits: t reaches 1 within ``max_stages`` (100); a finite
+    log evidence; each particle mean within 0.75 NUTS sd of the
+    NUTS mean on the unconstrained coordinates (the bench's 0.3 is for 512
+    particles; 64 correlated particles after one mutation step carry several
+    times its Monte-Carlo error)."""
+    model, xt, yt = gp_setup(n, device, dtype)
+    evaluations = [0]
+
+    def counted(z, *a):
+        require(z.shape[0] == 32, f"smc_gp: an evaluation of {z.shape[0]} rows")
+        evaluations[0] += 1
+        return model.logp(z, *a)
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res, wall = timed(lambda: smc_tempered_stagewise(
+        counted, gen, model.dim, args=(xt, yt), num_particles=particles, particle_batch=32, mutation_steps=1,
+        max_depth=3, target_rel_ess=0.3, dtype=dtype, device=device,
+    ), device)
+    logz = float(res.log_evidence)
+    require(res.temperatures and res.temperatures[-1] == 1.0, f"smc_gp: t ended at {res.temperatures[-1:]} after {res.num_stages} stages")
+    require(math.isfinite(logz), f"smc_gp: log evidence {logz}")
+    p = res.particles.double().cpu().numpy()
+    nuts = nuts_position[..., :3].double().reshape(-1, 3).cpu().numpy()
+    z = np.abs(p.mean(0) - nuts.mean(0)) / nuts.std(0)
+    require(bool(np.all(z < 0.75)), f"smc_gp: particle means {p.mean(0)} against NUTS {nuts.mean(0)}: z {z}")
+    cons = np.exp(p)
+    return evaluations[0], {
+        "particles": particles, "n": n, "stages": res.num_stages, "ladder_length": len(res.temperatures),
+        "temperatures": list(res.temperatures), "wall_s": wall, "log_evidence": logz,
+        "final_step_size": float(res.final_step_size), "evaluations_32_rows": evaluations[0],
+        "ms_per_evaluation": wall / evaluations[0] * 1e3,
+        "mean_z_vs_nuts": dict(zip(GP_COORDS, (float(v) for v in z))),
+        "sd_ratio_vs_nuts": dict(zip(GP_COORDS, (float(v) for v in p.std(0) / nuts.std(0)))),
+        "particle_mean": dict(zip(("rho", "alpha", "sigma"), (float(v) for v in cons.mean(0)))),
+        "particle_sd": dict(zip(("rho", "alpha", "sigma"), (float(v) for v in cons.std(0)))),
+        "nuts_mean": dict(zip(("rho", "alpha", "sigma"), (float(v) for v in np.exp(nuts).mean(0)))),
+        "nuts_sd": dict(zip(("rho", "alpha", "sigma"), (float(v) for v in np.exp(nuts).std(0)))),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None,
+    }
+
+
+def phase_smc_gp(nuts_position):
+    chol_blocked.reset_counts()
+    evaluations, report = drive_smc_gp(nuts_position)
+    launches = block_kernel_launches("smc_gp", evaluations)
+    emit("smc_gp", **report, kernel_launches=launches, plain_calls=chol_blocked.PLAIN_CALLS["chol_inv_block"])
+    return launches
+
+
+
 def main():
     profiling = "--profile" in sys.argv[1:]
     smi = phase_device()
@@ -1788,6 +2116,14 @@ def main():
     if profiling:
         phase_profile_gp(gp_res, gp_model, gp_x, gp_y)
     phase_eight_schools()
+
+    radon_res, radon_model, radon_data = phase_radon_path()
+    if profiling:
+        phase_profile(radon_res, radon_model, radon_data, label="profile_radon")
+    phase_advi_radon(radon_model, radon_data, radon_res.position)
+    del radon_res, radon_model, radon_data
+    chol_entry["launches"] += phase_resume_gp()
+    chol_entry["launches"] += phase_smc_gp(gp_res.position)
     require(len(entries) == 7, f"{len(entries)} kernel entries")
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
     print(json.dumps({"kernels": entries}), flush=True)

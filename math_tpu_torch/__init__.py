@@ -24,7 +24,9 @@ Layout:
 - ``math_tpu_torch.dists``       — log densities
 - ``math_tpu_torch.ops``         — hand-written CUDA kernels + their plain versions
 - ``math_tpu_torch.model``       — log-density program layer
-- ``math_tpu_torch.infer``       — chain-batched NUTS with pooled warmup
+- ``math_tpu_torch.infer``       — chain-batched NUTS (pooled or per-chain warmup,
+  checkpointed), ADVI, tempered SMC
+- ``math_tpu_torch.io``          — checkpoints and the native draw store
 - ``math_tpu_torch.diagnostics`` — ESS / R-hat
 - ``math_tpu_torch.convert``     — data and sampler state shared with ``math_tpu``
 """

@@ -14,6 +14,7 @@ with ``parallel/``.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -37,6 +38,7 @@ class PooledResult(NamedTuple):
     n_grad_calls: int = 0  # chain-batched gradient evaluations of the whole run
     final_state: Optional[IntegratorState] = None
     chunk_caps: tuple = ()  # run_pooled_chains_chunked: the cap each warmup, then sampling, chunk ran at
+    chunk_seconds: tuple = ()  # run_pooled_chains_chunked: host wall of each of those chunks
 
 
 def _welford_merge_batch(wf: adapt.WelfordState, zs, axis_name=None):
@@ -107,7 +109,7 @@ def sample_pooled(noise, states, logp_grad, eps, inv_mass, num_samples, *, max_d
     return states, zs, stats
 
 
-def _pooled_result(zs, stats, eps_final, inv_mass, max_depth, n_grad_calls, final_state, chunk_caps=()):
+def _pooled_result(zs, stats, eps_final, inv_mass, max_depth, n_grad_calls, final_state, chunk_caps=(), chunk_seconds=()):
     # (num_samples, chains, ...) -> (chains, num_samples, ...)
     stats = NutsStats(*(f.swapaxes(0, 1) for f in stats))
     return PooledResult(
@@ -123,6 +125,7 @@ def _pooled_result(zs, stats, eps_final, inv_mass, max_depth, n_grad_calls, fina
         n_grad_calls=n_grad_calls,
         final_state=final_state,
         chunk_caps=tuple(chunk_caps),
+        chunk_seconds=tuple(chunk_seconds),
     )
 
 
@@ -215,7 +218,9 @@ def run_pooled_chains_chunked(
     cap that chunk ran at (as ``infer/resume.py`` does), where the reference
     counts every draw against the final cap, so that the truncation an
     escalation detected still warns.  ``PooledResult.max_depth`` is the final
-    cap, ``chunk_caps`` the cap of every chunk.
+    cap, ``chunk_caps`` the cap of every chunk, ``chunk_seconds`` its host
+    wall (the sampler synchronises with the device at every leaf, so this is
+    the chunk's time to within one leaf).
 
     ``mesh=`` (chains sharded over devices) is not ported yet.
     """
@@ -229,12 +234,13 @@ def run_pooled_chains_chunked(
     in_slow, window_end = adapt.warmup_schedule(num_warmup)
     cap = max(2, warmup_start_cap) if auto_depth and warmup_start_cap < max_depth else max_depth
     probe = min(depth_probe, num_warmup) if auto_depth and depth_probe is not None else 0
-    caps = []
+    caps, seconds = [], []
 
     with torch.no_grad():
         states, da, wf, inv_mass = init_pooled(noise, z0s, logp_grad)
         s = 0
         while s < num_warmup:
+            t0 = time.perf_counter()
             e = min(s + warmup_chunk, num_warmup)
             if auto_depth and s < probe < e:
                 e = probe
@@ -247,6 +253,7 @@ def run_pooled_chains_chunked(
             s = e
             if auto_depth and s < num_warmup:  # from the chunk's last 50 steps
                 cap = adapt.choose_depth_cap(torch.stack(depths[-50:]).cpu().numpy(), max_depth, depth_margin)
+            seconds.append(time.perf_counter() - t0)
         eps_final = torch.exp(da.log_eps_bar) if num_warmup > 0 else torch.exp(da.log_eps)
 
         zs_parts, stats_parts = [], []
@@ -254,6 +261,7 @@ def run_pooled_chains_chunked(
         pilot_end = min(100, num_samples) if auto_depth else 0
         piloting = auto_depth
         while done < num_samples:
+            t0 = time.perf_counter()
             n = min(sample_chunk, num_samples - done)
             if piloting and done < pilot_end:
                 n = min(n, pilot_end - done)
@@ -273,6 +281,7 @@ def run_pooled_chains_chunked(
                 else:
                     piloting = False
                 cap = new_cap
+            seconds.append(time.perf_counter() - t0)
         if not zs_parts:  # num_samples == 0
             _, zs, stats = sample_pooled(noise, states, logp_grad, eps_final, inv_mass, 0, max_depth=cap)
             zs_parts, stats_parts = [zs], [stats]
@@ -280,4 +289,4 @@ def run_pooled_chains_chunked(
     stats = NutsStats(*(torch.cat(f, 0) for f in zip(*stats_parts)))
     if auto_depth and total:
         adapt.warn_on_saturation_rate(hits / total, cap, treedepth_warn_threshold)
-    return _pooled_result(zs, stats, eps_final, inv_mass, cap, logp_grad.calls, states, caps)
+    return _pooled_result(zs, stats, eps_final, inv_mass, cap, logp_grad.calls, states, caps, seconds)

@@ -34,7 +34,7 @@ import torch
 
 from math_tpu_torch.config import get_config
 from math_tpu_torch.infer import adapt
-from math_tpu_torch.infer.nuts import ChainNoise, IntegratorState, LogpGrad, NutsStats, make_metric, nuts_kernel
+from math_tpu_torch.infer.nuts import ChainNoise, IntegratorState, LogpGrad, Metric, NutsStats, make_metric, nuts_kernel
 
 
 def _bad_mask(logp_grad, init):
@@ -119,6 +119,75 @@ class ChainResult(NamedTuple):
     warmup_tree_depth: Optional[torch.Tensor] = None  # (chains, num_warmup): what auto_depth reads
 
 
+class WarmupCarry(NamedTuple):
+    """What warmup carries from one step (or one segment of steps) to the
+    next: the integrator state, dual averaging, the Welford accumulator, the
+    current metric and the running sum of acceptance probabilities."""
+
+    state: IntegratorState
+    da: adapt.DualAveragingState
+    wf: tuple
+    metric: Metric
+    acc_sum: torch.Tensor
+
+
+def _welford_fns(c, dim, dt, dev, dense_mass):
+    """``(init, update, final)`` of the per-chain accumulator of the metric's kind."""
+    if dense_mass:
+        return (lambda: adapt.welford_cov_init(dim, dt, dev, chains=c), adapt.welford_cov_update,
+                adapt.welford_cov_regularized)
+    return lambda: adapt.welford_init(dim, dt, dev, chains=c), adapt.welford_update, adapt.welford_variance_regularized
+
+
+def _warmup_init(noise, logp_grad, z0, dense_mass=False):
+    """The carry warmup starts from (ref: resume.py:83 ``_warmup_init``): the
+    state at ``z0``, a unit metric, each chain's initial step-size heuristic
+    in a fresh dual-averaging state, an empty accumulator."""
+    c, dim = z0.shape
+    dt, dev = z0.dtype, z0.device
+    wf_init, _, _ = _welford_fns(c, dim, dt, dev, dense_mass)
+    if dense_mass:
+        inv_mass = torch.eye(dim, dtype=dt, device=dev).expand(c, dim, dim).contiguous()
+    else:
+        inv_mass = torch.ones((c, dim), dtype=dt, device=dev)
+    metric = make_metric(inv_mass, dense_mass)
+    logp0, grad0 = logp_grad(z0)
+    state = IntegratorState(z0, torch.zeros_like(z0), logp0, grad0)
+    da = adapt.da_init(adapt.find_reasonable_step_size(noise, logp_grad, state, metric), dt)
+    return WarmupCarry(state, da, wf_init(), metric, torch.zeros((c,), dtype=dt, device=dev))
+
+
+def _warmup_segment(noise, logp_grad, carry, in_slow, window_end, max_depth, target_accept):
+    """The warmup steps of one slice ``(in_slow, window_end)`` of the Stan
+    schedule, from ``carry`` (ref: resume.py:100 ``_warmup_segment``).
+    Returns ``(carry, depths (C, steps))``; a run split into segments draws
+    the same numbers as one segment over the whole schedule."""
+    state, da, wf, metric, acc_sum = carry
+    c, dim = state.z.shape
+    dt, dev = state.z.dtype, state.z.device
+    wf_init, wf_update, wf_final = _welford_fns(c, dim, dt, dev, metric.dense)
+    depths = []
+    for slow, win_end in zip(in_slow, window_end):
+        state, stats = nuts_kernel(noise, state, logp_grad, torch.exp(da.log_eps), metric, max_depth=max_depth)
+        da = adapt.da_update(da, stats.accept_prob, target=target_accept)
+        if slow:
+            wf = wf_update(wf, state.z)
+        if win_end:
+            metric = make_metric(wf_final(wf), metric.dense)
+            wf = wf_init()
+            # the metric just changed, so the averaged iterates are stale
+            da = adapt.da_init(torch.exp(da.log_eps), dt)
+        acc_sum = acc_sum + stats.accept_prob
+        depths.append(stats.tree_depth)
+    depths = torch.stack(depths, 1) if depths else torch.zeros((c, 0), dtype=torch.int32, device=dev)
+    return WarmupCarry(state, da, wf, metric, acc_sum), depths
+
+
+def _warmup_step_size(da, num_warmup):
+    """The sampling step size warmup hands on: the averaged iterate."""
+    return torch.exp(da.log_eps_bar) if num_warmup > 0 else torch.exp(da.log_eps)
+
+
 def _warmup_chains(noise, logp_grad, z0, num_warmup, max_depth, target_accept, dense_mass=False):
     """Every chain's Stan-window warmup, chain-batched (ref:
     ``_warmup_chain_factory``, sample.py:130): per-chain step size (the
@@ -127,47 +196,18 @@ def _warmup_chains(noise, logp_grad, z0, num_warmup, max_depth, target_accept, d
     averaging re-centred when a window closes).  Returns ``(state, eps_final
     (C,), metric, warmup_accept (C,), depths (C, num_warmup))``; the depths
     feed ``adapt.choose_depth_cap``."""
-    c, dim = z0.shape
-    dt, dev = z0.dtype, z0.device
-    if dense_mass:
-        wf_init = lambda: adapt.welford_cov_init(dim, dt, dev, chains=c)  # noqa: E731
-        wf_update, wf_final = adapt.welford_cov_update, adapt.welford_cov_regularized
-        inv_mass = torch.eye(dim, dtype=dt, device=dev).expand(c, dim, dim).contiguous()
-    else:
-        wf_init = lambda: adapt.welford_init(dim, dt, dev, chains=c)  # noqa: E731
-        wf_update, wf_final = adapt.welford_update, adapt.welford_variance_regularized
-        inv_mass = torch.ones((c, dim), dtype=dt, device=dev)
-    metric = make_metric(inv_mass, dense_mass)
-
-    logp0, grad0 = logp_grad(z0)
-    state = IntegratorState(z0, torch.zeros_like(z0), logp0, grad0)
-    da = adapt.da_init(adapt.find_reasonable_step_size(noise, logp_grad, state, metric), dt)
-    wf = wf_init()
-    acc_sum = torch.zeros((c,), dtype=dt, device=dev)
-    depths = []
+    carry = _warmup_init(noise, logp_grad, z0, dense_mass)
     in_slow, window_end = adapt.warmup_schedule(num_warmup)
-    for slow, win_end in zip(in_slow, window_end):
-        state, stats = nuts_kernel(noise, state, logp_grad, torch.exp(da.log_eps), metric, max_depth=max_depth)
-        da = adapt.da_update(da, stats.accept_prob, target=target_accept)
-        if slow:
-            wf = wf_update(wf, state.z)
-        if win_end:
-            metric = make_metric(wf_final(wf), dense_mass)
-            wf = wf_init()
-            # the metric just changed, so the averaged iterates are stale
-            da = adapt.da_init(torch.exp(da.log_eps), dt)
-        acc_sum = acc_sum + stats.accept_prob
-        depths.append(stats.tree_depth)
-    eps_final = torch.exp(da.log_eps_bar) if num_warmup > 0 else torch.exp(da.log_eps)
-    depths = torch.stack(depths, 1) if depths else torch.zeros((c, 0), dtype=torch.int32, device=dev)
-    return state, eps_final, metric, acc_sum / max(num_warmup, 1), depths
+    carry, depths = _warmup_segment(noise, logp_grad, carry, in_slow, window_end, max_depth, target_accept)
+    eps_final = _warmup_step_size(carry.da, num_warmup)
+    return carry.state, eps_final, carry.metric, carry.acc_sum / max(num_warmup, 1), depths
 
 
 def _sample_chains(noise, logp_grad, state, eps, metric, num_samples, max_depth, thin=1):
     """Every chain's sampling phase from its warmed-up state (ref:
     ``_sample_chain_factory``, sample.py:209): ``thin`` transitions a kept
-    draw, the statistics of the last.  Returns ``(zs (C, num_samples, D),
-    stats with fields (C, num_samples))``."""
+    draw, the statistics of the last.  Returns ``(state, zs (C, num_samples,
+    D), stats with fields (C, num_samples))``."""
     c, dim = state.z.shape
     zs = torch.empty((c, num_samples, dim), dtype=state.z.dtype, device=state.z.device)
     kept = []
@@ -177,9 +217,9 @@ def _sample_chains(noise, logp_grad, state, eps, metric, num_samples, max_depth,
         zs[:, i] = state.z
         kept.append(stats)
     if kept:
-        return zs, NutsStats(*(torch.stack(f, 1) for f in zip(*kept)))
+        return state, zs, NutsStats(*(torch.stack(f, 1) for f in zip(*kept)))
     empty = torch.zeros((c, 0), device=state.z.device)
-    return zs, NutsStats(*([empty] * len(NutsStats._fields)))
+    return state, zs, NutsStats(*([empty] * len(NutsStats._fields)))
 
 
 def sample_nuts(
@@ -245,7 +285,7 @@ def sample_nuts(
         cap = max_depth
         if auto_depth:
             cap = adapt.choose_depth_cap(depths[:, num_warmup // 2 :].cpu().numpy(), max_depth, depth_margin)
-        zs, stats = _sample_chains(noise, logp_grad, state, eps, metric, num_samples, cap, thin)
+        _, zs, stats = _sample_chains(noise, logp_grad, state, eps, metric, num_samples, cap, thin)
     if auto_depth:
         adapt.warn_on_treedepth_saturation(stats.tree_depth.cpu().numpy(), cap, treedepth_warn_threshold)
     return ChainResult(

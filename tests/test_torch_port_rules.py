@@ -46,6 +46,7 @@ LAYER = {
     "dists": 2,
     "model": 3,
     "diagnostics": 3,
+    "io": 3,
     "infer": 4,
     "models": 4,
     "convert": 5,
@@ -90,6 +91,9 @@ def test_port_has_the_slice_modules():
         "math_tpu_torch/ops/chol_blocked.py", "math_tpu_torch/ops/cholesky.py", "math_tpu_torch/ops/gp.py",
         "math_tpu_torch/dists/multivariate.py", "math_tpu_torch/models/gp_regression.py",
         "math_tpu_torch/transforms/vector.py", "math_tpu_torch/special/basic.py", "math_tpu_torch/dists/discrete.py",
+        "math_tpu_torch/ops/segment.py", "math_tpu_torch/models/radon.py", "math_tpu_torch/infer/advi.py",
+        "math_tpu_torch/infer/smc.py", "math_tpu_torch/infer/resume.py", "math_tpu_torch/io/checkpoint.py",
+        "math_tpu_torch/io/draw_store.py",
     ):
         assert rel in files, rel
     for name in KERNEL_SOURCES:
