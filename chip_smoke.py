@@ -115,8 +115,38 @@ each with the counts set to 0 just before it and read just after:
   NUTS draws, peak memory; the block kernel launched 16 times a 32-row
   evaluation.
 
+BASELINE config 4 as its bench drives it, after those, with the counts set to
+0 just before it and read just after:
+
+- ``kernels_lv``: the Lotka-Volterra RK4 kernel pair (``csrc/lv_rk4.cu``,
+  forward solve and exact adjoint, one thread a chain) against its plain
+  version (autograd through ``ode_rk4_fixed``) at the path's shape (C = 512,
+  T = 20, S = 24) in float32 against float64, the double instance against
+  float64 (1e-10), and ragged shapes (C = 5 and 129, T = 3, S = 1 and 7, one
+  lane whose alpha overflows: the NaN / inf pattern must be the plain
+  version's); times of each kernel and of the plain version, the bound by
+  operations, and beside it the serial chain's own time and cycles a step,
+  read from the kernels' ``clock64`` / ``%globaltimer`` stamps;
+- ``lv_path``: ``make(ts, solver="rk4")`` on ``synthetic_data(20)`` under
+  ``run_pooled_chains_chunked``, 512 chains, ``max_depth=7``, accept 0.85,
+  chunks of 10 / 15, the bench's 150 + 150 cut to 100 + 100: the forward
+  kernel launched once per log-density evaluation, the adjoint once per
+  gradient call, the plain version never; wall, calls, tree depth, the
+  deepest lane's leapfrogs, divergences, split R-hat and bulk ESS of log
+  theta, calls per unit of minimum ESS, recovery of theta and z0 against
+  the generating values and against the JAX package's posterior mode,
+  ``logp`` and gradient at 8 final positions against the float64 plain
+  model;
+- ``lv_rk45``: the config's named method (adaptive DP5 with the continuous
+  adjoint, eager) at the 512 final positions: 3 gradient calls in float32 and
+  1 in float64, timed, the loop steps they take, ``logp`` and gradient
+  against the RK4 model beside the reference's float64 audit;
+- ``ode_family``: TR-BDF2 (van der Pol), the DAE (values and gradients) and
+  the Newton / Powell root solvers (roots and implicit-function Jacobians) at
+  64 lanes, float32 against float64 on the card.
+
 With ``--profile`` further phases trace a few sampling transitions of the
-GLM, ordinal, multinomial and radon paths and a few gradient calls of the GP path
+GLM, ordinal, multinomial, radon and LV paths and a few gradient calls of the GP path
 with ``torch.profiler`` and print the device time by kernel.
 
 Without a GPU the sampler phases can be rehearsed on the CPU at a small size:
@@ -128,7 +158,9 @@ tol=0.3)`` with ``x = glm_logistic.synthetic_data(4000, 5)[0]``, and
 ``drive_categorical_sampler`` alike; ``check_radon(*drive_radon(chains=64,
 device="cpu"))``, ``drive_resume_gp(n=48, chains=8, device="cpu",
 dtype=torch.float64, sigma_tol=0.15)`` (block size 16, as above) and
-``drive_smc_gp(positions, n=48, device="cpu", dtype=torch.float64)``.
+``drive_smc_gp(positions, n=48, device="cpu", dtype=torch.float64)``;
+``check_lv(*drive_lv(chains=16, device="cpu"))`` (an hour: the plain RK4
+is ~0.4 s a gradient call on the CPU) and ``drive_ode_family(device="cpu")``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -158,10 +190,12 @@ from math_tpu_torch.infer import (
 )
 from math_tpu_torch.io import draw_store
 from math_tpu_torch.model import make_log_density
-from math_tpu_torch.models import eight_schools, glm_logistic, gp_regression, radon
-from math_tpu_torch.ops import _build, chol_blocked, glm_fused
+from math_tpu_torch.models import eight_schools, glm_logistic, gp_regression, lotka_volterra, radon
+from math_tpu_torch.ops import _build, chol_blocked, glm_fused, lv_rk4
 from math_tpu_torch.ops import gp as gp_ops
 from math_tpu_torch.ops.cholesky import spd_solve_logdiag_reference
+from math_tpu_torch.ops import solve as solve_ops
+from math_tpu_torch.ops.ode import integrate_dae, integrate_ode_bdf, integrate_ode_rk45
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, TF32 on the tensor cores (dense), and HBM bandwidth.
@@ -229,8 +263,13 @@ def require(cond, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line a phase; ``script_s``: seconds since the script started,
+    so a log shows where the time limit goes."""
+    print(json.dumps({"phase": phase, **fields, "script_s": time.perf_counter() - START}), flush=True)
 
 
 def phase_device():
@@ -259,8 +298,9 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+            k = re.search(r"\d+([a-z_][a-z0-9_]*_kernel)(I(?:Li\d+E)+E|I[fd]E)?", m.group(1))
             args = re.findall(r"Li(\d+)E", k.group(2) or "") if k else []
+            args = args or ([{"IfE": "float", "IdE": "double"}[k.group(2)]] if k and k.group(2) in ("IfE", "IdE") else [])
             entry = [(k.group(1) + (f"<{','.join(args)}>" if args else "")) if k else m.group(1)]
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -276,13 +316,14 @@ def ptxas_report(log):
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ["glm_fused", "glm_categorical", "chol_inv_block"]
+    names = ["glm_fused", "glm_categorical", "chol_inv_block", "lv_rk4"]
     started = {name: _build.start_build(name) for name in names}  # one nvcc per source, together
     for name in names:
         _build.finish_build(name, started[name])
     glm_fused._library()
     glm_fused._categorical_library()
     chol_blocked._library()
+    lv_rk4._library()
     emit("build", sources=[f"math_tpu_torch/csrc/{n}.cu" for n in names],
          seconds=time.perf_counter() - t0, nvcc_seconds=dict(_build.BUILD_SECONDS),
          ptxas={n: ptxas_report(_build.BUILD_LOG.get(n, "")) for n in names})
@@ -679,7 +720,8 @@ def phase_profile(res, model, args, label="profile", transitions=5):
     """Only with ``--profile``: where the time of a sampling transition goes.
     Continues a path's chains at their adapted step size and metric; times
     ``transitions`` transitions on the host clock, then traces as many with
-    ``torch.profiler`` and sums the device time by kernel."""
+    ``torch.profiler`` and sums the device time by kernel.  Returns
+    ``(device kernel rows, their total microseconds, traced gradient calls)``."""
     from torch.profiler import ProfilerActivity, profile
 
     from math_tpu_torch.infer.nuts import ChainNoise, LogpGrad
@@ -713,6 +755,7 @@ def phase_profile(res, model, args, label="profile", transitions=5):
         device_busy_share=(total_us / 1e6 / calls_traced) / (wall / calls),
         top_kernels=[{"name": e.key[:80], "count": e.count, "device_ms": dev_us(e) / 1e3} for e in top],
     )
+    return kernels, total_us, calls_traced
 
 
 # ---------------------------------------------------------------------------
@@ -2075,6 +2118,446 @@ def phase_smc_gp(nuts_position):
 
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 4 as its bench drives it: Lotka-Volterra with the RK4 kernel
+# pair under 512-chain chunked NUTS, and the config's adaptive DP5 method
+# ---------------------------------------------------------------------------
+
+LV_TIMES, LV_STEPS, C_LV = 20, lotka_volterra.RK4_STEPS_PER_INTERVAL, 512
+LV_REPLACES = "no Pallas kernel: math_tpu/ops/ode.py:408 lax.scan under models/lotka_volterra.py:70"
+# Operations of one RK4 step of the Lotka-Volterra system a chain, counted
+# from the function (each + - * and negation one): four right-hand sides of 8,
+# three stage inputs of 2 x 2, the update 2 x 7; its adjoint given the
+# step's state: stages k1..k3 and s2..s4 again (3 x 8 + 3 x 4), h/6 lambda
+# and its double (4), the four stage adjoints of 24 (J_y^T kbar 13, ybar 2,
+# J_theta^T kbar and its sum 9), the cotangent updates 3 x 4.
+LV_FWD_OPS, LV_ADJ_OPS = 58, 148
+# Recovery limits of lv_path on |log posterior mean - log generating value|,
+# from a CPU rehearsal of drive_lv at 16 chains (float32, 100 + 100): theta
+# 0.176-0.238, z0 0.084-0.135.  The distances are the data's: the JAX
+# package's posterior mode sits as far from the generating values, so a
+# limit must allow them.
+LV_RECOVERY_LIMIT = {"theta": 0.3, "z0": 0.2}
+# The sharper yardstick: the JAX package's posterior mode of the same data
+# (tools/lv_reference_map.py, float64 L-BFGS on the CPU), and a limit on
+# |log posterior mean - log mode|.  The same rehearsal's means sat 0.0005-
+# 0.0139 (theta) and 0.0009-0.0072 (z0) from it, the gap of a skewed
+# posterior's mean to its mode plus Monte Carlo error; 0.05 is ~3.5x that
+# and a quarter of the generating values' distance, so a sampler drawn
+# toward them fails it.
+LV_REFERENCE_MODE = {
+    "theta": np.array([0.6982800569947145, 0.035308056127418226, 0.6472203186939335, 0.01984523578060249]),
+    "z0": np.array([30.354032420178935, 6.814392801765534]),
+}
+LV_MODE_LIMIT = 0.05
+# The float64 audit of the reference (artifacts/lv_grid_audit_r4.json): the
+# fixed grid against adaptive DP5 at posterior points.
+LV_AUDIT = {"max_abs_dlogp": 0.001498, "max_rel_dgrad": 7.1e-05}
+
+
+def lv_kernel_inputs(c, nt, seed, overflow=False):
+    """``(z0 (c, 2), theta (c, 4), gbar (c, nt, 2))`` as numpy from a seed: the
+    generating values of ``synthetic_data`` spread by 20% (where a sampler's
+    chains are); ``overflow`` sets one lane's alpha to 1e30."""
+    _, _, theta_true, z0_true = lotka_volterra.synthetic_data(LV_TIMES)
+    rng = np.random.default_rng(seed)
+    theta = theta_true * np.exp(0.2 * rng.normal(size=(c, 4)))
+    z0 = z0_true * np.exp(0.2 * rng.normal(size=(c, 2)))
+    if overflow:
+        theta[c // 2, 0] = 1e30
+    return z0, theta, rng.normal(size=(c, nt, 2))
+
+
+def lv_plain_parts(z0, theta, gbar, ts, steps, dtype, device="cuda"):
+    """``(ys, z0bar, thetabar)`` of the plain version (autograd through
+    ``ode_rk4_fixed``) in ``dtype`` on ``device``."""
+    z = torch.tensor(z0, dtype=dtype, device=device, requires_grad=True)
+    th = torch.tensor(theta, dtype=dtype, device=device, requires_grad=True)
+    ys = lv_rk4.lv_rk4_plain(z, 0.0, ts, th, steps)
+    zb, tb = torch.autograd.grad(ys, (z, th), torch.tensor(gbar, dtype=dtype, device=device))
+    return ys.detach(), zb, tb
+
+
+def lv_kernel_parts(z0, theta, gbar, ts, steps, dtype):
+    """``(ys, z0bar, thetabar)`` of the kernel pair in ``dtype``."""
+    z, th, g = (torch.tensor(a, dtype=dtype, device="cuda") for a in (z0, theta, gbar))
+    ys = lv_rk4.lv_rk4_forward(z, 0.0, ts, th, steps)
+    zb, tb = lv_rk4.lv_rk4_adjoint(z, 0.0, ts, th, steps, ys, g.contiguous())
+    return ys, zb, tb
+
+
+def normalized_err(got, want):
+    """``max |got - want| / max |want|``, in float64."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def normalized_errs(got, want):
+    """``normalized_err`` of each of ``ys, z0bar, thetabar``."""
+    return {name: normalized_err(g, w) for name, g, w in zip(("ys", "z0bar", "thetabar"), got, want)}
+
+
+def lv_ragged_checks():
+    """Ragged shapes, each with one lane whose alpha overflows: the kernel in
+    float32 and float64 against the plain version of the same dtype.  The
+    pattern of NaN and of inf in ``ys`` and of non-finite gradients must be
+    the plain version's; the finite lanes agree within the main shape's
+    tolerances (float64 ones for the double instance)."""
+    ts_all = lotka_volterra.synthetic_data(LV_TIMES)[0]
+    out = {}
+    for c in (5, 129):
+        for steps in (1, 7):
+            z0, theta, gbar = lv_kernel_inputs(c, 3, seed=300 + c + steps, overflow=True)
+            for dtype, tol in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+                got = lv_kernel_parts(z0, theta, gbar, ts_all[:3], steps, dtype)
+                want = lv_plain_parts(z0, theta, gbar, ts_all[:3], steps, dtype)
+                torch.cuda.synchronize()
+                label = f"c{c}_s{steps}_{str(dtype)[6:]}"
+                require(torch.equal(torch.isnan(got[0]), torch.isnan(want[0])) and
+                        torch.equal(torch.isinf(got[0]), torch.isinf(want[0])), f"lv_rk4 {label}: NaN/inf pattern of ys")
+                for g, w, name in zip(got[1:], want[1:], ("z0bar", "thetabar")):
+                    require(torch.equal(torch.isfinite(g), torch.isfinite(w)), f"lv_rk4 {label}: non-finite pattern of {name}")
+                fin = torch.isfinite(want[0]).all(dim=(1, 2)) & torch.isfinite(want[2]).all(dim=1)
+                require(int(fin.sum()) == c - 1, f"lv_rk4 {label}: {int(fin.sum())} finite lanes of {c}")
+                errs = normalized_errs([t[fin] for t in got], [t[fin] for t in want])
+                require(max(errs.values()) <= tol, f"lv_rk4 {label}: {errs} > {tol}")
+                out[label] = {"normalized_err": errs, "nonfinite_ys": int((~torch.isfinite(got[0])).sum()),
+                              "nan_ys": int(torch.isnan(got[0]).sum())}
+    return out
+
+
+def lv_chain_stamps(launches, n_steps, reps=5):
+    """Chain 0's serial work inside each kernel of the pair, from its stamps
+    (``clock64()`` and ``%globaltimer`` where its steps start and end): the
+    median over ``reps`` launches of the time (ms) and of the cycles a step.
+    ``launches`` maps a name to a function of the stamps tensor."""
+    out = {}
+    for name, launch in launches.items():
+        rows = []
+        for _ in range(reps):
+            st = torch.zeros(4, dtype=torch.int64, device="cuda")
+            launch(st)
+            rows.append(st.cpu().tolist())
+        cycles = float(np.median([r[1] - r[0] for r in rows]))
+        ns = float(np.median([r[3] - r[2] for r in rows]))
+        require(cycles > 0 and ns > 0, f"lv_rk4 {name}: stamps {rows}")
+        out[name] = {"chain_ms": ns / 1e6, "cycles_per_step": cycles / n_steps, "cycles": cycles, "ns": ns}
+    return out
+
+
+def phase_kernels_lv():
+    """The LV kernel pair against its plain version on the card: the main
+    shape (C = 512, T = 20, S = 24) in float32 against float64, the double
+    instance against float64, the ragged shapes; times of the kernels, of the
+    plain version (eager autograd, float32) and the bounds."""
+    ts = lotka_volterra.synthetic_data(LV_TIMES)[0]
+    c, nt, steps = C_LV, LV_TIMES, LV_STEPS
+    z0, theta, gbar = lv_kernel_inputs(c, nt, seed=400)
+    want = lv_plain_parts(z0, theta, gbar, ts, steps, torch.float64)
+    got32 = lv_kernel_parts(z0, theta, gbar, ts, steps, torch.float32)
+    got64 = lv_kernel_parts(z0, theta, gbar, ts, steps, torch.float64)
+    plain32 = lv_plain_parts(z0, theta, gbar, ts, steps, torch.float32)
+    torch.cuda.synchronize()
+    # float32: 10x the float32 plain version's own error at this shape on the
+    # CPU (1.5e-6 for ys, 3e-6 for the gradients, normalized by the largest value)
+    tol32 = {"ys": 2e-5, "z0bar": 5e-5, "thetabar": 5e-5}
+    errs32, errs64, plain_errs = normalized_errs(got32, want), normalized_errs(got64, want), normalized_errs(plain32, want)
+    for name, tol in tol32.items():
+        require(errs32[name] <= tol, f"lv_rk4 float32 {name}: normalized error {errs32[name]} > {tol}")
+        require(errs64[name] <= 1e-10, f"lv_rk4 float64 {name}: normalized error {errs64[name]} > 1e-10")
+    ragged = lv_ragged_checks()
+
+    zt, tht, gt = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in (z0, theta, gbar))
+    ys = lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps)
+    fwd_ms = time_ms(lambda: lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps), warmup=3, reps=50)
+    adj_ms = time_ms(lambda: lv_rk4.lv_rk4_adjoint(zt, 0.0, ts, tht, steps, ys, gt), warmup=3, reps=50)
+    ms = time_ms(lambda: lv_rk4.lv_rk4_adjoint(zt, 0.0, ts, tht, steps, lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps), gt),
+                 warmup=3, reps=50)
+    plain_fwd_ms = time_ms(lambda: lv_rk4.lv_rk4_plain(zt, 0.0, ts, tht, steps), warmup=1, reps=3)
+    plain_ms = time_ms(lambda: lv_plain_parts(z0, theta, gbar, ts, steps, torch.float32), warmup=1, reps=3)
+    n_steps = nt * steps
+    flops = float(LV_FWD_OPS + LV_ADJ_OPS) * n_steps * c
+    nbytes = 4.0 * (c * 2 + c * 4 + nt + 2 * c * nt * 2 + c * 2 + c * 4)
+    chain = lv_chain_stamps({
+        "forward": lambda st: lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps, stamps=st),
+        "adjoint": lambda st: lv_rk4.lv_rk4_adjoint(zt, 0.0, ts, tht, steps, ys, gt, stamps=st),
+    }, n_steps)
+    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    require(bound_ms <= ms, f"lv_rk4: {ms} ms beats its bound {bound_ms} ms: the count is wrong")
+    entry = {
+        "name": "lv_rk4", "route": "cuda", "source": "math_tpu_torch/csrc/lv_rk4.cu", "replaces": LV_REPLACES,
+        "launches": None,  # filled from lv_path's run
+        "max_abs_err": max(float((g.double() - w).abs().max()) for g, w in zip(got32, want)),
+        "ms": ms, "forward_ms": fwd_ms, "adjoint_ms": adj_ms,
+        "plain_ms": plain_ms, "plain_forward_ms": plain_fwd_ms,
+        "bound_ms": bound_ms, "bound_by": "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes",
+        "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "operations_ms": flops / PEAK_FP32_FLOPS * 1e3,
+        # measured in this run: chain 0's serial work in each kernel, by its stamps
+        "chain_ms": chain["forward"]["chain_ms"] + chain["adjoint"]["chain_ms"],
+        "forward_chain_ms": chain["forward"]["chain_ms"], "adjoint_chain_ms": chain["adjoint"]["chain_ms"],
+        "cycles_per_step_forward": chain["forward"]["cycles_per_step"],
+        "cycles_per_step_adjoint": chain["adjoint"]["cycles_per_step"],
+        "sm_clock_ghz_in_kernel": (chain["forward"]["cycles"] + chain["adjoint"]["cycles"])
+        / (chain["forward"]["ns"] + chain["adjoint"]["ns"]),
+        "library_ms": None,  # no PyTorch call integrates an ODE
+        "shape": {"c": c, "t": nt, "steps_per_interval": steps, "dtype": "float32"},
+        "normalized_err": errs32, "tolerance": tol32, "plain_f32_normalized_err": plain_errs,
+        "double_normalized_err": errs64, "double_tolerance": 1e-10,
+        "forward_equal_to_plain_f32": bool(torch.equal(got32[0], plain32[0].float())),
+        "ragged": ragged,
+    }
+    emit("kernels_lv", **{k: v for k, v in entry.items() if k != "ragged"}, ragged=ragged)
+    return entry
+
+
+def drive_lv(*, chains=C_LV, num_warmup=100, num_samples=100, seed=0, device="cuda", dtype=torch.float32):
+    """BASELINE config 4 as ``benches/bench_lv.py:18-37`` runs it, the length
+    cut from 150 + 150 to 100 + 100: ``make(ts, solver="rk4")`` on
+    ``synthetic_data(20)``, ``run_pooled_chains_chunked`` at ``max_depth=7``,
+    ``target_accept=0.85``, warmup chunks of 10 and sampling chunks of 15,
+    every coordinate started uniform in (-1.5, -0.5) from a numpy seed.
+    Returns ``(res, wall_s, model, args, evaluations)``: ``evaluations``
+    counts the chain-batched log-density evaluations."""
+    ts, y_obs, _, _ = lotka_volterra.synthetic_data(LV_TIMES)
+    model = lotka_volterra.make(ts, solver="rk4")
+    args = (torch.tensor(y_obs, dtype=dtype, device=device),)
+    evaluations = [0]
+
+    def counted(z, *a):
+        evaluations[0] += 1
+        return model.logp(z, *a)
+
+    z0 = torch.tensor(np.random.default_rng(seed).uniform(-1.5, -0.5, (chains, model.dim)), dtype=dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    res, wall = timed(lambda: run_pooled_chains_chunked(
+        gen, z0, counted, args=args, num_warmup=num_warmup, num_samples=num_samples, max_depth=7,
+        target_accept=0.85, warmup_chunk=10, sample_chunk=15, device=device,
+    ), device)
+    require(res.position.shape == (chains, num_samples, model.dim), f"lv: draws of shape {tuple(res.position.shape)}")
+    return res, wall, model, args, evaluations[0]
+
+
+def lv_against_float64(model, z, y_obs):
+    """``logp`` and gradient of ``model`` at ``z`` (its dtype, its solver on
+    its device) against the float64 plain model (the CPU tensors take the
+    plain version): ``(max |dlogp|, max normalized gradient error)``, the
+    gradient error of a point ``max |dg| / max |g|``."""
+    lp, g = model.logp_and_grad(z, y_obs)
+    lp64, g64 = model.logp_and_grad(z.double().cpu(), y_obs.double().cpu())
+    lp, g = lp.cpu(), g.cpu()
+    dlp = float((lp.double() - lp64).abs().max())
+    dg = float(((g.double() - g64).abs().amax(1) / g64.abs().amax(1)).max())
+    return dlp, dg
+
+
+def check_lv(res, wall, model, args, evaluations, limits=LV_RECOVERY_LIMIT):
+    """The LV path's gates and report.  Limits: divergences < 5% (the other
+    paths' gate); finite draws; split R-hat < 1.05 on log theta; recovery
+    ``|log mean - log generating value|`` of theta and z0 within ``limits``
+    and ``|log mean - log reference mode|`` within ``LV_MODE_LIMIT``;
+    ``logp`` and its gradient at 8 final positions against the float64 plain
+    model: |dlogp| <= 0.01 + 1e-5 |logp| and normalized gradient error <= 1e-3
+    in float32 (the float32 rounding of 480 steps and of a 40-term sum),
+    1e-10 in float64."""
+    _, _, theta_true, z0_true = lotka_volterra.synthetic_data(LV_TIMES)
+    pos = res.position.double().cpu().numpy()
+    require(bool(np.isfinite(pos).all()), "lv: non-finite draws")
+    div_rate = float(res.diverging.double().mean())
+    require(div_rate < 0.05, f"lv: divergence rate {div_rate}")
+    rhat = convergence.split_rhat(pos[..., :4])
+    require(bool(np.all(rhat < 1.05)), f"lv: split R-hat {rhat} on log theta")
+    draws = model.transform_draws(res.position)
+    rec = {}
+    for name, truth in (("theta", theta_true), ("z0", z0_true)):
+        mean = draws[name].double().reshape(-1, len(truth)).mean(0).cpu().numpy()
+        err = np.abs(np.log(mean) - np.log(truth))
+        require(bool(np.all(err <= limits[name])), f"lv: recovery of {name}: {err} > {limits[name]}")
+        mode = LV_REFERENCE_MODE[name]
+        err_mode = np.abs(np.log(mean) - np.log(mode))
+        require(bool(np.all(err_mode <= LV_MODE_LIMIT)), f"lv: {name} against the reference mode: {err_mode} > {LV_MODE_LIMIT}")
+        rec[name] = {"posterior_mean": mean.tolist(), "generating": truth.tolist(), "abs_log_err": err.tolist(),
+                     "reference_mode": mode.tolist(), "abs_log_err_vs_mode": err_mode.tolist()}
+    z = res.position[:8, -1, :].contiguous()
+    dlp, dg = lv_against_float64(model, z, args[0])
+    lp_scale = float(model.logp(z, args[0]).double().abs().max())
+    double = z.dtype == torch.float64
+    require(dlp <= (1e-10 if double else 0.01 + 1e-5 * lp_scale), f"lv: logp against float64: {dlp}")
+    require(dg <= (1e-10 if double else 1e-3), f"lv: gradient against float64: {dg}")
+    cap = res.max_depth
+    return {
+        "chains": pos.shape[0], "num_samples": pos.shape[1], "dim": model.dim, "wall_s": wall,
+        "grad_calls": res.n_grad_calls, "logp_evaluations": evaluations,
+        "ms_per_grad_call": wall / res.n_grad_calls * 1e3, "chunk_caps": list(res.chunk_caps),
+        "chunk_seconds": list(res.chunk_seconds), "step_size": float(res.step_size),
+        "mean_tree_depth": float(res.tree_depth.double().mean()),
+        "mean_lane_leapfrogs_per_transition": float(res.n_leapfrog.double().mean()),
+        "deepest_lane_leapfrogs_per_transition": float(res.n_leapfrog.max(0).values.double().mean()),
+        "divergence_rate": div_rate, "saturation_rate": float((res.tree_depth >= cap).double().mean()),
+        "ess_bulk_log_theta": [float(v) for v in convergence.ess_bulk(pos[..., :4])],
+        "split_rhat_log_theta": [float(v) for v in rhat],
+        **ess_per_call(pos, res.n_grad_calls),
+        "recovery": rec, "recovery_limit": limits, "mode_limit": LV_MODE_LIMIT,
+        "max_abs_dlogp_vs_float64": dlp, "max_grad_err_vs_float64": dg,
+    }
+
+
+def phase_lv_path():
+    lv_rk4.reset_counts()
+    res, wall, model, args, evaluations = drive_lv()
+    launches, plain = dict(lv_rk4.LAUNCHES), dict(lv_rk4.PLAIN_CALLS)
+    require(launches[lv_rk4.FORWARD] == evaluations > 0, f"lv_path: {launches} for {evaluations} log-density evaluations")
+    require(launches[lv_rk4.ADJOINT] == res.n_grad_calls, f"lv_path: {launches} for {res.n_grad_calls} gradient calls")
+    require(plain["lv_rk4_plain"] == 0, f"lv_path: the plain version ran: {plain}")
+    report = check_lv(res, wall, model, args, evaluations)
+    emit("lv_path", **report, kernel_launches=launches, plain_calls=plain)
+    return res, model, args, launches[lv_rk4.FORWARD] + launches[lv_rk4.ADJOINT]
+
+
+def rk45_rhs_evaluations(theta, z0, ts):
+    """Right-hand-side evaluations of one ``integrate_ode_rk45`` value and
+    adjoint gradient at the model's settings: ``(forward, backward)``.  Each
+    step of the adaptive loop evaluates 6 stages on every lane and each
+    segment one more, so ``(evaluations - T) / 6`` is the number of loop
+    steps: the sum over the segments of the slowest lane's steps, which sets
+    the cost."""
+    calls = [0]
+
+    def rhs(t, z, th):
+        calls[0] += 1
+        return lotka_volterra.dz_dt(t, z, th)
+
+    th = theta.detach().requires_grad_(True)
+    ys = integrate_ode_rk45(rhs, z0.detach(), 0.0, ts, th, rtol=1e-6, atol=1e-8)
+    fwd = calls[0]
+    torch.autograd.grad(ys.sum(), th)
+    return fwd, calls[0] - fwd
+
+
+def drive_lv_rk45(position, y_obs, *, device="cuda"):
+    """The config's named method (``BASELINE.md:39``): ``make(ts)``, adaptive
+    DP5 with the continuous adjoint, eager, at the final positions of
+    ``lv_path``: 3 gradient calls in float32 and 1 in float64, timed, and
+    ``logp`` / gradient against the RK4 model at the same points.  Gates: in
+    float64, ten times the reference's audit (max |dlogp| 0.015, normalized
+    gradient difference 7.1e-4): the two discretizations agree as closely on
+    the card as in the audit; in float32, 0.05 and 5e-3 (float32 rounding of
+    both solves on top)."""
+    ts = lotka_volterra.synthetic_data(LV_TIMES)[0]
+    m45, m4 = lotka_volterra.make(ts), lotka_volterra.make(ts, solver="rk4")
+    out = {"chains": position.shape[0]}
+    for dtype, calls in ((torch.float32, 3), (torch.float64, 1)):
+        z, y = position.to(dtype).contiguous(), y_obs.to(dtype)
+        walls = []
+        for _ in range(calls):
+            (lp45, g45), wall = timed(lambda: m45.logp_and_grad(z, y), device)
+            walls.append(wall)
+        lp4, g4 = m4.logp_and_grad(z, y)
+        require(bool(torch.isfinite(lp45).all() and torch.isfinite(g45).all()), f"lv_rk45 {dtype}: non-finite logp or gradient")
+        dlp = float((lp45.double() - lp4.double()).abs().max())
+        dg = float(((g45.double() - g4.double()).abs().amax(1) / g4.double().abs().amax(1)).max())
+        lim_lp, lim_g = (10 * LV_AUDIT["max_abs_dlogp"], 10 * LV_AUDIT["max_rel_dgrad"]) if dtype == torch.float64 else (0.05, 5e-3)
+        require(dlp <= lim_lp and dg <= lim_g, f"lv_rk45 {dtype}: |dlogp| {dlp} (limit {lim_lp}), gradient {dg} (limit {lim_g})")
+        cons = m45.transform_draws(z)
+        fwd, bwd = rk45_rhs_evaluations(cons["theta"], cons["z0"], ts)
+        out[str(dtype)[6:]] = {
+            "grad_call_wall_s": walls, "max_abs_dlogp_vs_rk4": dlp, "max_grad_diff_vs_rk4": dg,
+            "limits": {"dlogp": lim_lp, "grad": lim_g}, "rhs_evaluations_forward": fwd, "rhs_evaluations_backward": bwd,
+            "loop_steps_forward": (fwd - LV_TIMES) / 6, "loop_steps_backward": (bwd - LV_TIMES) / 6,
+        }
+    out["reference_audit"] = LV_AUDIT
+    return out
+
+
+def phase_lv_rk45(position, y_obs):
+    lv_rk4.reset_counts()
+    out = drive_lv_rk45(position, y_obs)
+    emit("lv_rk45", **out, rk4_kernel_launches=dict(lv_rk4.LAUNCHES))
+
+
+
+# ---------------------------------------------------------------------------
+# The rest of the ODE family: TR-BDF2, the DAE and the algebraic solvers (no
+# kernel, no sampler path), at 64 lanes against float64
+# ---------------------------------------------------------------------------
+
+
+def vdp_rhs(t, y, th):
+    u, v = y.unbind(-1)
+    return torch.stack([v, th[:, 0] * ((1 - u ** 2) * v) - u], -1)
+
+
+def circle_residual(x, th):
+    return torch.stack([x[:, 0] ** 2 + x[:, 1] ** 2 - th[:, 0], x[:, 0] - x[:, 1] * th[:, 1]], -1)
+
+
+def drive_ode_family(lanes=64, device="cuda"):
+    """The systems of the JAX package's tests (``tests/test_ode_stiff.py``'s
+    van der Pol, ``tests/test_dae.py``'s nonlinear DAE, ``tests/test_ops.py``'s
+    two-equation root) at ``lanes`` lanes with seeded parameters, float32
+    against float64 on the same device.  Limits, on the largest error over the
+    largest value: 1e-3 for van der Pol (float32 solved at rtol 1e-5 against
+    float64 at the test's 1e-7) and the DAE's values and gradients (rtol 1e-5
+    against 1e-8), 1e-4 for the roots and their implicit-function Jacobians."""
+    rng = np.random.default_rng(500)
+    out = {"lanes": lanes}
+
+    def run(label, fn):
+        res, wall = timed(fn, device)
+        out.setdefault("wall_s", {})[label] = wall
+        return res
+
+    mu = 100.0 * np.exp(0.2 * rng.normal(size=(lanes, 1)))
+    y0 = np.tile([2.0, 0.0], (lanes, 1))
+    ts = np.array([0.3, 0.6, 1.0])
+    vdp = {}
+    for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-7), (torch.float64, 1e-7, 1e-9)):
+        vdp[dtype] = run(f"vdp_{str(dtype)[6:]}", lambda: integrate_ode_bdf(
+            vdp_rhs, torch.tensor(y0, dtype=dtype, device=device), 0.0, ts, torch.tensor(mu, dtype=dtype, device=device),
+            rtol=rtol, atol=atol))
+    require(bool(torch.isfinite(vdp[torch.float32]).all()), "ode_family: van der Pol float32 not finite")
+    out["vdp_normalized_err"] = normalized_err(vdp[torch.float32], vdp[torch.float64])
+    require(out["vdp_normalized_err"] <= 1e-3, f"ode_family: van der Pol {out['vdp_normalized_err']}")
+
+    th = 0.9 * np.exp(0.2 * rng.normal(size=(lanes, 1)))
+    yd = 2.0 * np.exp(0.2 * rng.normal(size=(lanes, 1)))
+    dae = {}
+    for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-7), (torch.float64, 1e-8, 1e-10)):
+        ty0 = torch.tensor(yd, dtype=dtype, device=device, requires_grad=True)
+        tth = torch.tensor(th, dtype=dtype, device=device, requires_grad=True)
+
+        def solve():
+            ys, zs = integrate_dae(lambda t, y, z, q: -z, lambda t, y, z, q: z ** 3 + z - q[:, :1] * y, ty0,
+                                   torch.tensor([0.5], dtype=dtype, device=device), 0.0, np.linspace(0.5, 2.0, 4), tth,
+                                   rtol=rtol, atol=atol)
+            return (ys.detach(), zs.detach(), *torch.autograd.grad(torch.square(ys).sum(), (ty0, tth)))
+
+        dae[dtype] = run(f"dae_{str(dtype)[6:]}", solve)
+    out["dae_normalized_err"] = {name: normalized_err(a, b) for name, a, b in
+                                 zip(("ys", "zs", "grad_y0", "grad_theta"), dae[torch.float32], dae[torch.float64])}
+    require(max(out["dae_normalized_err"].values()) <= 1e-3, f"ode_family: DAE {out['dae_normalized_err']}")
+
+    sth = np.stack([4.0 * np.exp(0.2 * rng.normal(size=lanes)), np.exp(0.3 * rng.normal(size=lanes))], -1)
+    for name in ("algebra_solver_newton", "algebra_solver_powell"):
+        got = {}
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-10)):
+            q = torch.tensor(sth, dtype=dtype, device=device, requires_grad=True)
+
+            def root():
+                x = getattr(solve_ops, name)(circle_residual, torch.tensor([1.0, 1.0], dtype=dtype, device=device), q,
+                                             tol=tol)
+                jac = torch.stack([torch.autograd.grad(x[:, i].sum(), q, retain_graph=True)[0] for i in range(2)], 1)
+                return x.detach(), jac
+
+            got[dtype] = run(f"{name}_{str(dtype)[6:]}", root)
+        errs = {part: normalized_err(a, b) for part, a, b in zip(("root", "jacobian"), got[torch.float32], got[torch.float64])}
+        require(max(errs.values()) <= 1e-4, f"ode_family: {name} {errs}")
+        out[f"{name}_normalized_err"] = errs
+    return out
+
+
+def phase_ode_family():
+    emit("ode_family", **drive_ode_family())
+
+
 def main():
     profiling = "--profile" in sys.argv[1:]
     smi = phase_device()
@@ -2124,7 +2607,18 @@ def main():
     del radon_res, radon_model, radon_data
     chol_entry["launches"] += phase_resume_gp()
     chol_entry["launches"] += phase_smc_gp(gp_res.position)
-    require(len(entries) == 7, f"{len(entries)} kernel entries")
+
+    lv_entry = phase_kernels_lv()
+    lv_res, lv_model, lv_args, lv_entry["launches"] = phase_lv_path()
+    entries.append(lv_entry)
+    if profiling:
+        kernels, total_us, calls = phase_profile(lv_res, lv_model, lv_args, label="profile_lv")
+        pair_us = sum(dev_us(e) for e in kernels if lv_rk4.KERNEL in e.key)
+        emit("profile_lv_pair", device_ms_per_grad_call=pair_us / 1e3 / calls, device_share=pair_us / total_us)
+    phase_lv_rk45(lv_res.position[:, -1, :].contiguous(), lv_args[0])
+    del lv_res, lv_model, lv_args
+    phase_ode_family()
+    require(len(entries) == 8, f"{len(entries)} kernel entries")
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

@@ -10,7 +10,8 @@ Counterpart: ``math_tpu/dists/continuous.py`` (reference:
 - Invalid parameters yield ``-inf`` with double-where sanitization for
   nan-free gradients.
 
-Ported so far: the densities the eight-schools, GLM and GP models use.
+Ported so far: the densities the eight-schools, GLM, GP and Lotka-Volterra
+models use.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from math_tpu_torch.special import LOG_SQRT_TWO_PI
 from math_tpu_torch.utils.propto import include_summand
 from math_tpu_torch.dists._util import bcast, finish, ok_pos, safe
 
-__all__ = ["normal_lpdf", "std_normal_lpdf", "cauchy_lpdf", "inv_gamma_lpdf"]
+__all__ = ["normal_lpdf", "std_normal_lpdf", "cauchy_lpdf", "inv_gamma_lpdf", "lognormal_lpdf"]
 
 
 def normal_lpdf(y, mu, sigma, *, propto=False, batch_ndims=0):
@@ -85,3 +86,25 @@ def inv_gamma_lpdf(y, alpha, beta, *, propto=False, batch_ndims=0):
     if include_summand(propto, y, beta):
         lp = lp - b / ys
     return finish(lp, ok, batch_ndims)
+
+
+def lognormal_lpdf(y, mu, sigma, *, propto=False, batch_ndims=0):
+    """Ref: lognormal_lpdf.hpp.  ``y <= 0`` lies off the support (-inf); a
+    non-finite ``y``, ``mu`` or a bad ``sigma`` gives -inf as well."""
+    yb, mub, sb = bcast(y, mu, sigma)
+    okp = torch.isfinite(mub) & ok_pos(sb)
+    sup = yb > 0
+    ok = okp & torch.isfinite(yb)
+    ys = safe(yb, sup)
+    s = safe(sb, okp)
+    z = (torch.log(ys) - safe(mub, okp, 0.0)) / s
+    lp = torch.zeros_like(z)
+    if include_summand(propto, y, mu, sigma):
+        lp = lp - 0.5 * torch.square(z)
+    if include_summand(propto, sigma):
+        lp = lp - torch.log(s)
+    if include_summand(propto, y):
+        lp = lp - torch.log(ys)
+    if include_summand(propto):
+        lp = lp - LOG_SQRT_TWO_PI
+    return finish(torch.where(sup, lp, -float("inf")), ok, batch_ndims)

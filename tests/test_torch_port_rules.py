@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from math_tpu_torch import get_config, update_config
-from math_tpu_torch.ops import _build, chol_blocked, glm_fused
+from math_tpu_torch.ops import _build, chol_blocked, glm_fused, lv_rk4
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "math_tpu_torch")
@@ -32,7 +32,7 @@ FORBIDDEN = ("jax", "jaxlib", "math_tpu", "triton")
 MAX_LINE = 160
 KERNEL_SOURCES = [
     "math_tpu_torch/csrc/glm_fused.cu", "math_tpu_torch/csrc/glm_categorical.cu", "math_tpu_torch/csrc/tf32x3.cuh",
-    "math_tpu_torch/csrc/chol_inv_block.cu",
+    "math_tpu_torch/csrc/chol_inv_block.cu", "math_tpu_torch/csrc/lv_rk4.cu",
 ]
 GLM_SOURCES = ("math_tpu_torch/csrc/glm_fused.cu", "math_tpu_torch/csrc/glm_categorical.cu")
 TPU_GENERATIONS = ("v5e", "v5p", "v6e", "v4-8")
@@ -93,7 +93,8 @@ def test_port_has_the_slice_modules():
         "math_tpu_torch/transforms/vector.py", "math_tpu_torch/special/basic.py", "math_tpu_torch/dists/discrete.py",
         "math_tpu_torch/ops/segment.py", "math_tpu_torch/models/radon.py", "math_tpu_torch/infer/advi.py",
         "math_tpu_torch/infer/smc.py", "math_tpu_torch/infer/resume.py", "math_tpu_torch/io/checkpoint.py",
-        "math_tpu_torch/io/draw_store.py",
+        "math_tpu_torch/io/draw_store.py", "math_tpu_torch/ops/ode.py", "math_tpu_torch/ops/lv_rk4.py",
+        "math_tpu_torch/models/lotka_volterra.py",
     ):
         assert rel in files, rel
     for name in KERNEL_SOURCES:
@@ -193,10 +194,12 @@ def test_kernel_loader_raises_without_nvcc(tmp_path):
             glm_fused._categorical_library()
         with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
             chol_blocked._library()
+        with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+            lv_rk4._library()
     finally:
         update_config(kernel_build_dir=old)
     assert not os.path.exists(tmp_path / "build")
-    assert glm_fused._lib is None and glm_fused._cat_lib is None and chol_blocked._lib is None
+    assert glm_fused._lib is None and glm_fused._cat_lib is None and chol_blocked._lib is None and lv_rk4._lib is None
 
 
 GLM_ENTRY_POINTS = (
