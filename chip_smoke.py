@@ -145,8 +145,34 @@ BASELINE config 4 as its bench drives it, after those, with the counts set to
   the Newton / Powell root solvers (roots and implicit-function Jacobians) at
   64 lanes, float32 against float64 on the card.
 
+Constrained matrix and simplex parameters, after those, each path with the
+counts set to 0 just before it and read just after:
+
+- ``kernels_chol_small``: the block kernel at the shapes of per-chain
+  covariance matrices, (Cb, B) = (256, 5) (LKJ(2) correlations scaled by
+  lognormal sds) and (1024, 3) (Wishart draws), against its plain version in
+  float64 (on the Wishart draws per matrix, in units of the float32
+  roundoff times the condition number), timed beside the float32 plain
+  version, ``torch.linalg.cholesky`` + ``solve_triangular`` and the bound;
+  ragged B = 1, 3, 7, 17 with a block that is not positive definite (its NaN
+  pattern the plain version's);
+- ``constrained_prior``: 1024-chain ``run_pooled_chains`` (100 + 100, depth
+  5) on a prior over one block of every constrained ``Transform`` class
+  (``tools/constrained_models.py``): each constrained moment within 5
+  Monte-Carlo errors (from the bulk ESS) of its closed form; the block kernel
+  launched 7 times a gradient call, the plain version never;
+- ``varying_slopes_path``: the LKJ varying-slopes regression of
+  ``tools/constrained_models.py`` (100 groups of 20 rows, K = 5, dimension
+  521) under 256-chain ``run_pooled_chains`` (100 + 100, depth 6, accept
+  0.8): wall, calls, tree depth, divergences, split R-hat and bulk ESS of
+  mu, log tau, Omega's off-diagonals and sigma, recovery of the generating
+  values, ``logp`` and gradient at 8 final positions against the float64
+  model on CPU tensors, a gradient repeatable bit for bit; the block kernel
+  launched twice a gradient call (``multi_normal_lpdf`` and
+  ``lkj_corr_lpdf``), the plain version never.
+
 With ``--profile`` further phases trace a few sampling transitions of the
-GLM, ordinal, multinomial, radon and LV paths and a few gradient calls of the GP path
+GLM, ordinal, multinomial, radon, LV and varying-slopes paths and a few gradient calls of the GP path
 with ``torch.profiler`` and print the device time by kernel.
 
 Without a GPU the sampler phases can be rehearsed on the CPU at a small size:
@@ -196,6 +222,9 @@ from math_tpu_torch.ops import gp as gp_ops
 from math_tpu_torch.ops.cholesky import spd_solve_logdiag_reference
 from math_tpu_torch.ops import solve as solve_ops
 from math_tpu_torch.ops.ode import integrate_dae, integrate_ode_bdf, integrate_ode_rk45
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+import constrained_models  # noqa: E402  (tools/constrained_models.py: the two user models of the constrained phases)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, TF32 on the tensor cores (dense), and HBM bandwidth.
@@ -2558,6 +2587,290 @@ def phase_ode_family():
     emit("ode_family", **drive_ode_family())
 
 
+# ---------------------------------------------------------------------------
+# Constrained matrix and simplex parameters: the block kernel at the small
+# shapes of per-chain covariance matrices, a prior over every constrained
+# Transform, and the LKJ varying-slopes model
+# ---------------------------------------------------------------------------
+
+VS_GROUPS, VS_K, VS_PER_GROUP, C_VS = 100, 5, 20, 256
+C_PRIOR = 1024
+# B4 launches a gradient call: varying slopes factors one (C, 5, 5) block
+# twice (multi_normal_lpdf's spd_solve_logdiag and lkj_corr_lpdf's check);
+# the prior seven times (lkj_corr 1, wishart 2, inv_wishart 2,
+# multi_student_t 1, multi_normal_prec 1).  First-order backward passes
+# launch nothing (ops/chol_blocked.py).
+VS_LAUNCHES_PER_CALL = 2
+PRIOR_LAUNCHES_PER_CALL = 7
+# Limits set from a 64-chain CPU rehearsal (PERF.md, PR 9).
+VS_RECOVERY_LIMIT = {"mu": 0.3, "tau_rel": 0.25, "Omega": 0.25, "sigma": 0.05}
+VS_FLOAT32_LIMIT = {"logp_rel": 1e-5, "grad_rel": 1e-4}
+SMALL_SHAPES = ((C_VS, VS_K), (C_PRIOR, 3))
+# Unconstrained inits of both constrained phases: uniform(-0.5, 0.5) (why:
+# ``drive_varying_slopes``, ``drive_constrained_prior``).
+INIT_RADIUS = 0.5
+RAGGED_SMALL_B = (1, 3, 7, 17)
+EPS32 = 2.0**-24
+
+
+def small_blocks(cb, b, seed):
+    """SPD blocks like those the paths factor, made on the CPU in float64 and
+    moved to the card as float32: at B = 5 ``quad_form_diag(Omega, tau)`` with
+    Omega ~ LKJ(2) and log tau ~ normal(0, 0.5) (the varying-slopes
+    covariance); at B = 3 Wishart(6, S) draws (the constrained prior's)."""
+    gen = torch.Generator().manual_seed(seed)
+    if b == VS_K:
+        omega = dists.lkj_corr_rng(gen, b, 2.0, shape=(cb,))
+        tau = torch.exp(0.5 * torch.randn((cb, b), generator=gen, dtype=torch.float64))
+        d = omega * tau[:, :, None] * tau[:, None, :]
+    else:
+        d = dists.wishart_rng(gen, constrained_models.NU_WISHART, torch.tensor(constrained_models.S_WISHART), shape=(cb,))
+    return d.float().cuda().contiguous()
+
+
+def compare_chol_conditioned(d32, label):
+    """Kernel (float32) against the plain version in float64 on the same
+    blocks, matrix by matrix: ``max |U - U64| / max |U64|`` and the same for
+    ``W`` at most ``64 u kappa`` (u the float32 unit roundoff, kappa the
+    block's 2-norm condition number: the forward-error scale of a float32
+    factorization and inverse; Wishart draws reach kappa ~ 1e4 and more).
+    Also the float32 plain version's worst error, for comparison."""
+    u, w = chol_blocked.chol_inv_block_parts(d32)
+    torch.cuda.synchronize()
+    d64 = d32.double().cpu()
+    u64, w64 = chol_blocked.chol_inv_block_reference(d64)
+    up, wp = chol_blocked.chol_inv_block_reference(d32.cpu())
+    kappa = torch.linalg.cond(d64)
+    out = {}
+    for name, got, plain, want in (("U", u, up, u64), ("W", w, wp, w64)):
+        require(bool(torch.isfinite(got).all()), f"{label}: non-finite {name} of an SPD block")
+        scale = want.abs().amax((-2, -1))
+        rel = (got.double().cpu() - want).abs().amax((-2, -1)) / scale
+        rel_plain = (plain.double() - want).abs().amax((-2, -1)) / scale
+        ratio = rel / (EPS32 * kappa)
+        require(float(ratio.max()) <= 64.0, f"{label} {name}: error {float(rel.max())} is {float(ratio.max())} u kappa")
+        out[name] = {"max_abs_err": float((got.double().cpu() - want).abs().max()), "max_rel_err": float(rel.max()),
+                     "max_rel_err_plain_f32": float(rel_plain.max()), "max_err_in_u_kappa": float(ratio.max())}
+    out["kappa"] = {"max": float(kappa.max()), "median": float(kappa.median())}
+    return out
+
+
+def compare_chol_ragged_small(b, cb=5, bad=2):
+    """``cb`` blocks of size ``b``, block ``bad`` not positive definite from
+    pivot ``b // 2`` on: its NaN pattern equal to the plain version's, the
+    others finite and within 1e-4 of their largest entry."""
+    rng = np.random.default_rng(500 + b)
+    a = rng.normal(size=(cb, b, b))
+    d = a @ np.swapaxes(a, -1, -2) + b * np.eye(b)
+    p = b // 2
+    d[bad, p, p] = -5.0 * b
+    d32 = torch.tensor(d, dtype=torch.float32, device="cuda")
+    u, w = chol_blocked.chol_inv_block_parts(d32)
+    torch.cuda.synchronize()
+    u64, w64 = chol_blocked.chol_inv_block_reference(d32.double().cpu())
+    good = [i for i in range(cb) if i != bad]
+    for got, want in ((u.cpu(), u64), (w.cpu(), w64)):
+        require(bool((torch.isnan(got) == torch.isnan(want)).all()), f"ragged B={b}: NaN pattern differs from the plain version")
+        require(bool(torch.isnan(got[bad]).any()), f"ragged B={b}: the bad block is not NaN")
+        require(bool(torch.isfinite(got[good]).all()), f"ragged B={b}: a positive definite block was poisoned")
+        err = float((got.double() - want)[good].abs().max())
+        require(err <= 1e-4 * float(want[good].abs().max()), f"ragged B={b}: max abs err {err}")
+    return {"b": b, "cb": cb, "bad_matrix": bad, "bad_pivot": p}
+
+
+def phase_kernels_chol_small():
+    """B4 at the shapes of per-chain covariance matrices: against its plain
+    version in float64, timed beside the float32 plain version, one PyTorch
+    call pair and its bound; ragged sizes with a matrix that is not positive
+    definite."""
+    shapes = {}
+    for cb, b in SMALL_SHAPES:
+        d = small_blocks(cb, b, seed=600 + b)
+        if b == VS_K:
+            check = compare_chol(d, f"B4 at ({cb}, {b})")
+            check["conditioned"] = compare_chol_conditioned(d, f"B4 at ({cb}, {b})")
+        else:
+            check = compare_chol_conditioned(d, f"B4 at ({cb}, {b}) on Wishart draws")
+        ms = time_ms(lambda: chol_blocked.chol_inv_block_parts(d), warmup=5, reps=200)
+        plain_ms = time_ms(lambda: chol_blocked.chol_inv_block_reference(d), warmup=1, reps=5)
+        library_ms = time_ms(lambda: library_chol_inv(d), warmup=3, reps=50)
+        nbytes, flops = 3.0 * cb * b * b * 4, (4.0 / 3.0) * b**3 * cb
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        shapes[f"{cb}x{b}"] = {
+            "cb": cb, "b": b, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "barrier_stages": chol_blocked.block_kernel_stages(b),
+            "check": check,
+        }
+    ragged = [compare_chol_ragged_small(b) for b in RAGGED_SMALL_B]
+    emit("kernels_chol_small", shapes=shapes, ragged=ragged,
+         tolerance={"factor_rel_to_max": 1e-4, "conditioned_u_kappa": 64.0, "ragged_rel_to_max": 1e-4})
+    return {"shapes": shapes, "ragged": ragged}
+
+
+def vs_args(x, g, y, device="cuda", dtype=torch.float32):
+    return (torch.tensor(x, dtype=dtype, device=device), torch.tensor(g, device=device),
+            torch.tensor(y, dtype=dtype, device=device))
+
+
+def drive_varying_slopes(*, groups=VS_GROUPS, chains=C_VS, num_warmup=100, num_samples=100, max_depth=6, seed=0,
+                         device="cuda", dtype=torch.float32):
+    """The varying-slopes model (``tools/constrained_models.py``: 100 groups of
+    20 rows, K = 5, dimension 521) under ``run_pooled_chains``, 256 chains,
+    accept 0.8, inits uniform(-0.5, 0.5): from Stan's radius 2 (sigma and tau
+    from e^-2 to e^2) a 64-chain CPU rehearsal still had split R-hat ~1.5 and
+    17% divergences after 100 warmup iterations (PERF.md, PR 9).  Returns
+    ``(res, wall_s, model, args, truth)``."""
+    x, g, y, truth = constrained_models.varying_slopes_data(groups, VS_K, VS_PER_GROUP, seed=0)
+    model = constrained_models.make_varying_slopes(groups, VS_K)
+    args = vs_args(x, g, y, device, dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z0 = model.initial_positions(gen, chains, INIT_RADIUS, device=device, dtype=dtype)
+    res, wall = timed(lambda: run_pooled_chains(
+        gen, z0, model.logp, args=args, num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
+        target_accept=0.8, device=device,
+    ), device)
+    require(res.position.shape == (chains, num_samples, model.dim), f"varying slopes: draws of shape {tuple(res.position.shape)}")
+    return res, wall, model, args, truth
+
+
+def vs_monitored(draws):
+    """(names, values (chains, draws, 21)): mu, log tau, Omega's
+    off-diagonals and sigma, as numpy float64."""
+    k = draws["mu"].shape[-1]
+    r, c = np.tril_indices(k, -1)
+    omega = draws["Omega"].double().cpu().numpy()[..., r, c]
+    cols = [draws["mu"].double().cpu().numpy(), np.log(draws["tau"].double().cpu().numpy()), omega,
+            draws["sigma"].double().cpu().numpy()[..., None]]
+    names = [f"mu[{i}]" for i in range(k)] + [f"log_tau[{i}]" for i in range(k)] + \
+        [f"Omega[{i},{j}]" for i, j in zip(r, c)] + ["sigma"]
+    return names, np.concatenate(cols, -1)
+
+
+def check_varying_slopes(res, wall, model, args, truth, limits=VS_RECOVERY_LIMIT):
+    """Gates: divergences < 5%, split R-hat < 1.05 on the monitored
+    quantities, posterior means within ``limits`` of the generating values
+    (``tau`` relative), ``logp`` and gradient at 8 final positions against
+    the float64 model on CPU tensors, and the gradient at the 256 final
+    positions equal bit for bit across two calls."""
+    pos = res.position.double().cpu().numpy()
+    require(bool(np.isfinite(pos).all()), "varying slopes: non-finite draws")
+    div_rate = float(res.diverging.double().mean())
+    require(div_rate < 0.05, f"varying slopes: divergence rate {div_rate}")
+    draws = model.transform_draws(res.position)
+    names, mon = vs_monitored(draws)
+    rhat = convergence.split_rhat(mon)
+    require(bool(np.all(rhat < 1.05)), f"varying slopes: split R-hat {dict(zip(names, rhat))}")
+    mean = {k: draws[k].double().cpu().numpy().reshape((-1,) + tuple(draws[k].shape[2:])).mean(0) for k in ("mu", "tau", "Omega", "sigma")}
+    errs = {
+        "mu": float(np.max(np.abs(mean["mu"] - truth["mu"]))),
+        "tau_rel": float(np.max(np.abs(mean["tau"] / truth["tau"] - 1.0))),
+        "Omega": float(np.max(np.abs(mean["Omega"] - truth["Omega"]))),
+        "sigma": float(abs(mean["sigma"] - truth["sigma"])),
+    }
+    require(all(errs[k] < limits[k] for k in errs), f"varying slopes: recovery {errs} against limits {limits}")
+    z8 = res.position[:8, -1, :].contiguous()
+    lp32, g32 = model.logp_and_grad(z8, *args)
+    args64 = tuple(a.cpu().double() if a.is_floating_point() else a.cpu() for a in args)
+    lp64, g64 = model.logp_and_grad(z8.double().cpu(), *args64)
+    f32 = {"logp_rel": float((lp32.double().cpu() - lp64).abs().max() / lp64.abs().max()),
+           "grad_rel": float((g32.double().cpu() - g64).abs().max() / g64.abs().max())}
+    require(all(f32[k] <= VS_FLOAT32_LIMIT[k] for k in f32), f"varying slopes: float32 against float64 {f32}, limits {VS_FLOAT32_LIMIT}")
+    z = res.position[:, -1, :].contiguous()
+    a, b = model.logp_and_grad(z, *args), model.logp_and_grad(z, *args)
+    repeatable = bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+    require(repeatable, "varying slopes: logp or gradient differs between two calls at the same positions")
+    return {
+        "chains": pos.shape[0], "num_samples": pos.shape[1], "dim": model.dim, "groups": len(truth["beta"]),
+        "wall_s": wall, "grad_calls": res.n_grad_calls, "ms_per_grad_call": wall / res.n_grad_calls * 1e3,
+        "step_size": float(res.step_size), "mean_tree_depth": float(res.tree_depth.double().mean()),
+        "deepest_lane_tree_depth": float(res.tree_depth.max(0).values.double().mean()),
+        "mean_lane_leapfrogs_per_transition": float(res.n_leapfrog.double().mean()),
+        "deepest_lane_leapfrogs_per_transition": float(res.n_leapfrog.max(0).values.double().mean()),
+        "divergence_rate": div_rate, "saturation_rate": float((res.tree_depth >= res.max_depth).double().mean()),
+        "split_rhat": dict(zip(names, (float(v) for v in rhat))),
+        "ess_bulk": dict(zip(names, (float(v) for v in convergence.ess_bulk(mon)))),
+        **ess_per_call(pos, res.n_grad_calls),
+        "posterior_mean": {k: np.asarray(v).tolist() for k, v in mean.items()}, "abs_err": errs, "recovery_limit": limits,
+        "float32_vs_float64_at_8": f32, "float32_limit": VS_FLOAT32_LIMIT, "logp_grad_bitwise_repeatable": repeatable,
+    }
+
+
+def phase_varying_slopes_path():
+    chol_blocked.reset_counts()
+    glm_fused.reset_counts()
+    lv_rk4.reset_counts()
+    res, wall, model, args, truth = drive_varying_slopes()
+    launches, plain = chol_blocked.LAUNCHES["chol_inv_block"], chol_blocked.PLAIN_CALLS["chol_inv_block"]
+    others = {**glm_fused.LAUNCHES, **glm_fused.PLAIN_CALLS, **lv_rk4.LAUNCHES, **lv_rk4.PLAIN_CALLS}
+    require(plain == 0, f"varying_slopes_path: the plain version ran {plain} times")
+    require(launches == VS_LAUNCHES_PER_CALL * res.n_grad_calls > 0,
+            f"varying_slopes_path: {launches} launches for {res.n_grad_calls} gradient calls, expected {VS_LAUNCHES_PER_CALL} each")
+    require(not any(others.values()), f"varying_slopes_path: another hand kernel ran: {others}")
+    report = check_varying_slopes(res, wall, model, args, truth)
+    emit("varying_slopes_path", **report, kernel_launches=launches, launches_per_grad_call=launches / res.n_grad_calls,
+         plain_calls=plain)
+    return res, model, args, launches
+
+
+def drive_constrained_prior(*, chains=C_PRIOR, num_warmup=100, num_samples=100, max_depth=5, seed=0, device="cuda",
+                            dtype=torch.float32):
+    """NUTS on the prior-only model of every constrained Transform
+    (``tools/constrained_models.py``), 1024 chains, accept 0.8, inits
+    uniform(-0.5, 0.5), depth 5 (256-chain CPU rehearsals: from radius 2 the
+    inverse Wishart's mean was 6.3 Monte-Carlo errors off after 100 warmup
+    iterations; from radius 0.5 within 3 errors at depth 6, 5.1 at depth 5;
+    the first chip run, 1024 chains at depth 5, within 3.0, in half the
+    calls of depth 6: PERF.md, PR 9).  Returns ``(res, wall_s, model)``."""
+    model = constrained_models.make_constrained_prior()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z0 = model.initial_positions(gen, chains, INIT_RADIUS, device=device, dtype=dtype)
+    res, wall = timed(lambda: run_pooled_chains(
+        gen, z0, model.logp, num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth, target_accept=0.8,
+        device=device,
+    ), device)
+    require(res.position.shape == (chains, num_samples, model.dim), f"prior: draws of shape {tuple(res.position.shape)}")
+    return res, wall, model
+
+
+def check_constrained_prior(res, wall, model, z_limit=5.0):
+    """Every moment of ``constrained_models.prior_moments`` within
+    ``z_limit`` Monte-Carlo standard errors (sd over sqrt(bulk ESS)) of its
+    closed form."""
+    pos = res.position.double().cpu().numpy()
+    require(bool(np.isfinite(pos).all()), "prior: non-finite draws")
+    draws = {k: v.double().cpu().numpy() for k, v in model.transform_draws(res.position).items()}
+    table = constrained_models.prior_moments(draws)
+    blocks, worst = {}, 0.0
+    for name, (vals, expected) in table.items():
+        ess = np.asarray(convergence.ess_bulk(vals), dtype=np.float64)
+        se = vals.reshape(-1, vals.shape[-1]).std(0) / np.sqrt(ess)
+        z = (vals.reshape(-1, vals.shape[-1]).mean(0) - expected) / se
+        blocks[name] = {"max_abs_z": float(np.max(np.abs(z))), "min_ess_bulk": float(np.min(ess)),
+                        "mean": vals.reshape(-1, vals.shape[-1]).mean(0).tolist(), "expected": expected.tolist()}
+        worst = max(worst, float(np.max(np.abs(z))))
+    require(worst < z_limit, f"prior: a moment is {worst} Monte-Carlo errors from its closed form: "
+            f"{ {k: v['max_abs_z'] for k, v in blocks.items()} }")
+    return {
+        "chains": pos.shape[0], "num_samples": pos.shape[1], "dim": model.dim, "wall_s": wall,
+        "grad_calls": res.n_grad_calls, "ms_per_grad_call": wall / res.n_grad_calls * 1e3,
+        "step_size": float(res.step_size), "mean_tree_depth": float(res.tree_depth.double().mean()),
+        "divergence_rate": float(res.diverging.double().mean()),
+        "saturation_rate": float((res.tree_depth >= res.max_depth).double().mean()),
+        "max_abs_z": worst, "z_limit": z_limit, "moments": blocks,
+    }
+
+
+def phase_constrained_prior():
+    chol_blocked.reset_counts()
+    res, wall, model = drive_constrained_prior()
+    launches, plain = chol_blocked.LAUNCHES["chol_inv_block"], chol_blocked.PLAIN_CALLS["chol_inv_block"]
+    require(plain == 0, f"constrained_prior: the plain version ran {plain} times")
+    require(launches == PRIOR_LAUNCHES_PER_CALL * res.n_grad_calls > 0,
+            f"constrained_prior: {launches} launches for {res.n_grad_calls} gradient calls, expected {PRIOR_LAUNCHES_PER_CALL} each")
+    emit("constrained_prior", **check_constrained_prior(res, wall, model), kernel_launches=launches, plain_calls=plain)
+    return launches
+
+
 def main():
     profiling = "--profile" in sys.argv[1:]
     smi = phase_device()
@@ -2618,6 +2931,14 @@ def main():
     phase_lv_rk45(lv_res.position[:, -1, :].contiguous(), lv_args[0])
     del lv_res, lv_model, lv_args
     phase_ode_family()
+
+    chol_entry["small_shapes"] = phase_kernels_chol_small()
+    chol_entry["launches"] += phase_constrained_prior()
+    vs_res, vs_model, vs_args_, vs_launches = phase_varying_slopes_path()
+    chol_entry["launches"] += vs_launches
+    if profiling:
+        phase_profile(vs_res, vs_model, vs_args_, label="profile_varying_slopes")
+    del vs_res, vs_model, vs_args_
     require(len(entries) == 8, f"{len(entries)} kernel entries")
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
     print(json.dumps({"kernels": entries}), flush=True)

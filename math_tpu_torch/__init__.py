@@ -19,8 +19,8 @@ Entry points run on the GPU unless the caller asks for the CPU
 
 Layout:
 
-- ``math_tpu_torch.special``     — constants used by the densities
-- ``math_tpu_torch.transforms``  — constraint transforms
+- ``math_tpu_torch.special``     — scalar special functions (``special/basic.py``)
+- ``math_tpu_torch.transforms``  — constraint transforms (every class of ``math_tpu``)
 - ``math_tpu_torch.dists``       — log densities
 - ``math_tpu_torch.ops``         — hand-written CUDA kernels + their plain versions
 - ``math_tpu_torch.model``       — log-density program layer

@@ -18,7 +18,7 @@ import torch
 
 from math_tpu_torch.utils.batch import sum_event
 
-__all__ = ["fdtype", "bcast", "as_tensors", "finish", "safe", "ok_pos", "ok_ordered"]
+__all__ = ["fdtype", "bcast", "as_tensors", "finish", "safe", "ok_pos", "ok_prob", "ok_simplex", "ok_ordered", "all_event"]
 
 
 def _like(*args):
@@ -97,6 +97,32 @@ def finish(lp, ok, batch_ndims=0):
 
 def ok_pos(x):
     return torch.isfinite(x) & (x > 0)
+
+
+def ok_prob(x):
+    return torch.isfinite(x) & (x >= 0) & (x <= 1)
+
+
+def ok_simplex(x, axis=-1):
+    """Valid simplex along ``axis`` (ref: ``check_simplex.hpp``).
+
+    Tolerance scales with dtype epsilon and length so float32 simplexes
+    produced by the stick-breaking transform pass (the reference's fixed
+    CONSTRAINT_TOLERANCE=1e-8 assumes double).
+    """
+    k = x.shape[axis]
+    tol = max(1e-8, 16.0 * k * torch.finfo(x.dtype).eps)
+    fin = torch.all(ok_prob(x), dim=axis)
+    return fin & (torch.abs(torch.sum(x, dim=axis) - 1.0) <= tol)
+
+
+def all_event(mask, batch_ndims=0):
+    """``mask`` reduced by ``all`` over every axis after the first
+    ``batch_ndims``: one verdict per chain (the JAX package's ``jnp.all``
+    over everything, one chain at a time under ``vmap``)."""
+    if mask.ndim <= batch_ndims:
+        return mask
+    return mask.flatten(batch_ndims).all(-1)
 
 
 def ok_ordered(x, axis=-1):

@@ -1,6 +1,7 @@
 """PyTorch port: the rules every file of ``math_tpu_torch`` keeps.
 
-- the port and ``chip_smoke.py`` import nothing of JAX, of the JAX package or
+- the port, ``chip_smoke.py`` and ``tools/constrained_models.py`` (the user
+  models ``chip_smoke.py`` drives) import nothing of JAX, of the JAX package or
   of Triton (an AST walk over every import statement);
 - lower layers do not import higher ones (the layer order of
   ``tests/test_layering.py``);
@@ -54,7 +55,7 @@ LAYER = {
 
 
 def _port_files():
-    out = ["chip_smoke.py"]
+    out = ["chip_smoke.py", "tools/constrained_models.py"]
     for dirpath, _, files in os.walk(PKG):
         for fn in sorted(files):
             if fn.endswith(".py"):
@@ -94,7 +95,8 @@ def test_port_has_the_slice_modules():
         "math_tpu_torch/ops/segment.py", "math_tpu_torch/models/radon.py", "math_tpu_torch/infer/advi.py",
         "math_tpu_torch/infer/smc.py", "math_tpu_torch/infer/resume.py", "math_tpu_torch/io/checkpoint.py",
         "math_tpu_torch/io/draw_store.py", "math_tpu_torch/ops/ode.py", "math_tpu_torch/ops/lv_rk4.py",
-        "math_tpu_torch/models/lotka_volterra.py",
+        "math_tpu_torch/models/lotka_volterra.py", "math_tpu_torch/transforms/matrix.py", "math_tpu_torch/ops/linalg.py",
+        "tools/constrained_models.py",
     ):
         assert rel in files, rel
     for name in KERNEL_SOURCES:
