@@ -171,9 +171,37 @@ counts set to 0 just before it and read just after:
   launched twice a gradient call (``multi_normal_lpdf`` and
   ``lkj_corr_lpdf``), the plain version never.
 
+The univariate slice, after those:
+
+- ``censored_nb_path``: the top-coded negative-binomial regression of
+  ``tools/univariate_models.py`` on the main path's 100,000 x 50 design
+  (counts from NB2(exp(1.5 + X beta), 5), beta ~ normal(0, 0.1); the 5% of
+  rows at y >= U recorded as "U or more") under 256-chain
+  ``run_pooled_chains`` (60 + 60, depth 6, accept 0.8, float32): the
+  exact rows through the NB-2 family of the fused GLM kernel (launched once a
+  gradient call; plain version, layout copies and every other hand kernel 0),
+  the top-coded rows through ``neg_binomial_2_lccdf`` (``inc_beta`` on the
+  card).  Prints U and the top-coded share, wall, calls, ms a call, tree
+  depth, divergences, split R-hat and bulk ESS of alpha, beta and log phi,
+  calls per unit of minimum ESS, the Lentz iterations a call, recovery of
+  the generating values, ``logp`` and gradient at 8 final positions against
+  the float64 model on CPU tensors, and the NB-2 kernel's time at the path's
+  row count; ``--profile`` adds ``profile_censored_nb`` and the device share
+  of ``inc_beta``'s Lentz loop and quadrature;
+- ``univariate_sweep``: every density and cdf of
+  ``dists/{continuous,discrete,more}.py`` at one valid row a family,
+  broadcast to (1024, 64) with a seeded jitter, and ``inc_beta``,
+  ``gamma_p``, ``gamma_q``, ``owens_t`` and the four Bessel functions, in
+  float32 on the card against float64 on CPU tensors (values and gradients
+  in every float argument; ``inc_beta`` / ``gamma_p`` / ``gamma_q`` also
+  against scipy in float64), and every ``_rng``: 10^6 draws from a CUDA
+  generator, moments within 5 Monte-Carlo errors of the closed forms, the
+  same draws again from the same seed.  Prints the worst error of each.
+
 With ``--profile`` further phases trace a few sampling transitions of the
-GLM, ordinal, multinomial, radon, LV and varying-slopes paths and a few gradient calls of the GP path
-with ``torch.profiler`` and print the device time by kernel.
+GLM, ordinal, multinomial, radon, LV, varying-slopes and censored NB paths
+and a few gradient calls of the GP path with ``torch.profiler`` and print
+the device time by kernel.
 
 Without a GPU the sampler phases can be rehearsed on the CPU at a small size:
 ``drive_gp_sampler(n=48, chains=8, num_warmup=60, num_samples=40,
@@ -186,7 +214,10 @@ device="cpu"))``, ``drive_resume_gp(n=48, chains=8, device="cpu",
 dtype=torch.float64, sigma_tol=0.15)`` (block size 16, as above) and
 ``drive_smc_gp(positions, n=48, device="cpu", dtype=torch.float64)``;
 ``check_lv(*drive_lv(chains=16, device="cpu"))`` (an hour: the plain RK4
-is ~0.4 s a gradient call on the CPU) and ``drive_ode_family(device="cpu")``.
+is ~0.4 s a gradient call on the CPU) and ``drive_ode_family(device="cpu")``;
+``check_censored_nb(*drive_censored_nb(x, chains=8, num_warmup=60,
+num_samples=60, device="cpu"))`` with the main path's ``x`` (~0.35 s a
+gradient call on 8 chains: 20-40 min) and ``drive_univariate_sweep(device="cpu")``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -204,7 +235,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from math_tpu_torch import dists, get_config, transforms, update_config
+from math_tpu_torch import dists, get_config, special, transforms, update_config
 from math_tpu_torch.diagnostics import convergence
 from math_tpu_torch.infer import (
     advi,
@@ -222,9 +253,11 @@ from math_tpu_torch.ops import gp as gp_ops
 from math_tpu_torch.ops.cholesky import spd_solve_logdiag_reference
 from math_tpu_torch.ops import solve as solve_ops
 from math_tpu_torch.ops.ode import integrate_dae, integrate_ode_bdf, integrate_ode_rk45
+from math_tpu_torch.special import incbeta
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
 import constrained_models  # noqa: E402  (tools/constrained_models.py: the two user models of the constrained phases)
+import univariate_models  # noqa: E402  (tools/univariate_models.py: the censored NB regression and the sweep tables)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, TF32 on the tensor cores (dense), and HBM bandwidth.
@@ -737,9 +770,14 @@ def dev_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0.0)
 
 
+# profiler ranges (``record_function``) of the port: their device rows sum the
+# kernels inside them and are not kernels themselves
+PROFILER_RANGES = ("inc_beta.lentz", "inc_beta.quadrature")
+
+
 def device_kernels(prof):
     """``(rows of the device kernels, their total time in microseconds)`` of a finished profile."""
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in PROFILER_RANGES]
     total_us = sum(dev_us(e) for e in kernels)
     require(total_us > 0, "the profiler saw no device time")
     return kernels, total_us
@@ -2871,6 +2909,255 @@ def phase_constrained_prior():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The univariate slice: the top-coded negative-binomial regression (B1's NB-2
+# family under a sampler, inc_beta on the card) and the sweep of every
+# univariate function
+# ---------------------------------------------------------------------------
+
+C_NB = 256
+NB_FAMILY = "neg_binomial_2_log"
+# Limits set from a CPU rehearsal (PERF.md section 6), before the chip run that tests them.
+NB_RECOVERY_LIMIT = {"alpha": 0.05, "beta": 0.03, "phi_rel": 0.10}
+# float32 against float64, relative to the largest magnitude: the gradient
+# sums 94,613 rows through the NB-2 kernel (3xTF32 products, float32 sums;
+# its max abs err 0.115 at N = 100,000 in the kernels phase); the CPU float32
+# plain version is 4.3e-5 off at the full size, a first chip run 2.0e-4
+NB_FLOAT32_LIMIT = {"logp_rel": 1e-5, "grad_rel": 1e-3}
+# the sweep's gates: float32 on the card against float64 on CPU tensors,
+# values relative to max(1, |v|) per row, gradients relative to the largest
+# entry per argument; the functions through inc_beta's quadrature partials
+# get the wider gradient limit (a CPU rehearsal: worst 2.3e-4)
+SWEEP_VALUE_RTOL, SWEEP_GRAD_RTOL, SWEEP_GRAD_RTOL_INC_BETA = 1e-4, 1e-3, 5e-3
+INC_BETA_FAMILIES = ("student_t_", "beta_", "binomial_", "neg_binomial", "beta_binomial_", "inc_beta")
+# float64 port against scipy: inc_beta relative to max(I, 1 - I) (XLA's
+# continued fraction), gamma_p / gamma_q relative (PyTorch's gammainc: 1.6e-9
+# in its asymptotic band, ROADMAP C2)
+SCIPY_RTOL = {"inc_beta": 1e-11, "gamma_p": 5e-9, "gamma_q": 5e-9}
+RNG_DRAWS, RNG_Z_LIMIT = 1_000_000, 5.0
+
+
+def drive_censored_nb(x, *, chains=C_NB, num_warmup=60, num_samples=60, max_depth=6, seed=0, device="cuda",
+                      dtype=torch.float32, naive=False):
+    """The top-coded NB regression of ``tools/univariate_models.py`` on the
+    design ``x`` under ``run_pooled_chains``, accept 0.8, inits
+    uniform(-0.5, 0.5) (``INIT_RADIUS``), 60 + 60 (100 + 100 cut to keep the
+    script inside its time limit: PERF.md section 4).  ``naive``: the top-coded rows taken
+    as exact counts at ``U`` (no lccdf term).  Returns ``(res, wall_s, model,
+    args, data, lentz)`` with ``lentz`` the Lentz iterations the sampler's
+    ``inc_beta`` calls ran."""
+    data = univariate_models.censored_nb_data(x, seed=0)
+    model = univariate_models.make_censored_nb(x.shape[1])
+    args = univariate_models.censored_args(data, device=device, dtype=dtype, naive=naive)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z0 = model.initial_positions(gen, chains, INIT_RADIUS, device=device, dtype=dtype)
+    lp0 = model.logp(z0, *args)
+    require(bool(torch.isfinite(lp0).all()), "censored NB: a non-finite logp at the initial positions")
+    # the counts from 0 just before the sampler (the check above launched too)
+    for counts in (incbeta, glm_fused, chol_blocked, lv_rk4):
+        counts.reset_counts()
+    res, wall = timed(lambda: run_pooled_chains(
+        gen, z0, model.logp, args=args, num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
+        target_accept=0.8, device=device,
+    ), device)
+    lentz = dict(incbeta.LENTZ)
+    require(res.position.shape == (chains, num_samples, model.dim), f"censored NB: draws of shape {tuple(res.position.shape)}")
+    return res, wall, model, args, data, lentz
+
+
+def nb_monitored(draws):
+    """(names, values (chains, draws, K + 2)): alpha, beta, log phi."""
+    k = draws["beta"].shape[-1]
+    cols = [draws["alpha"].double().cpu().numpy()[..., None], draws["beta"].double().cpu().numpy(),
+            np.log(draws["phi"].double().cpu().numpy())[..., None]]
+    return ["alpha"] + [f"beta[{i}]" for i in range(k)] + ["log_phi"], np.concatenate(cols, -1)
+
+
+def censored_nb_recovery(draws, data):
+    mean = {k: draws[k].double().cpu().numpy().reshape((-1,) + tuple(draws[k].shape[2:])).mean(0) for k in ("alpha", "beta", "phi")}
+    return mean, {
+        "alpha": float(abs(mean["alpha"] - data["alpha"])),
+        "beta": float(np.max(np.abs(mean["beta"] - data["beta"]))),
+        "phi_rel": float(abs(mean["phi"] / data["phi"] - 1.0)),
+    }
+
+
+def check_censored_nb(res, wall, model, args, data, lentz, limits=NB_RECOVERY_LIMIT):
+    """Gates: divergences < 5%, split R-hat < 1.05 on alpha, beta and log
+    phi, posterior means within ``limits`` of the generating values (phi
+    relative), ``logp`` and gradient at 8 final positions against the float64
+    model on CPU tensors."""
+    pos = res.position.double().cpu().numpy()
+    require(bool(np.isfinite(pos).all()), "censored NB: non-finite draws")
+    div_rate = float(res.diverging.double().mean())
+    require(div_rate < 0.05, f"censored NB: divergence rate {div_rate}")
+    draws = model.transform_draws(res.position)
+    names, mon = nb_monitored(draws)
+    rhat = convergence.split_rhat(mon)
+    ess = convergence.ess_bulk(mon)
+    require(bool(np.all(rhat < 1.05)), f"censored NB: split R-hat {dict(zip(names, rhat))}")
+    mean, errs = censored_nb_recovery(draws, data)
+    require(all(errs[k] < limits[k] for k in errs), f"censored NB: recovery {errs} against limits {limits}")
+    z8 = res.position[:8, -1, :].contiguous()
+    lp32, g32 = model.logp_and_grad(z8, *args)
+    args64 = tuple(a.cpu().double() if isinstance(a, torch.Tensor) else a for a in args)
+    lp64, g64 = model.logp_and_grad(z8.double().cpu(), *args64)
+    f32 = {"logp_rel": float((lp32.double().cpu() - lp64).abs().max() / lp64.abs().max()),
+           "grad_rel": float((g32.double().cpu() - g64).abs().max() / g64.abs().max())}
+    require(all(f32[k] <= NB_FLOAT32_LIMIT[k] for k in f32), f"censored NB: float32 against float64 {f32}, limits {NB_FLOAT32_LIMIT}")
+    order = np.argsort(rhat)[::-1][:5]
+    return {
+        "U": data["U"], "top_coded_share": data["share"], "exact_rows": int(args[0].shape[0]), "top_coded_rows": int(args[2].shape[0]),
+        "chains": pos.shape[0], "num_samples": pos.shape[1], "dim": model.dim,
+        "wall_s": wall, "grad_calls": res.n_grad_calls, "ms_per_grad_call": wall / res.n_grad_calls * 1e3,
+        "step_size": float(res.step_size), "mean_tree_depth": float(res.tree_depth.double().mean()),
+        "deepest_lane_tree_depth": float(res.tree_depth.max(0).values.double().mean()),
+        "divergence_rate": div_rate, "saturation_rate": float((res.tree_depth >= res.max_depth).double().mean()),
+        "max_split_rhat": float(np.max(rhat)), "worst_split_rhat": {names[i]: float(rhat[i]) for i in order},
+        "split_rhat_alpha_log_phi": {"alpha": float(rhat[0]), "log_phi": float(rhat[-1])},
+        "min_ess_bulk_beta": float(np.min(ess[1:-1])), "ess_bulk_alpha_log_phi": {"alpha": float(ess[0]), "log_phi": float(ess[-1])},
+        **ess_per_call(pos, res.n_grad_calls),
+        "posterior_mean": {"alpha": float(mean["alpha"]), "phi": float(mean["phi"])}, "abs_err": errs, "recovery_limit": limits,
+        "float32_vs_float64_at_8": f32, "float32_limit": NB_FLOAT32_LIMIT,
+        "lentz": {**lentz, "iterations_per_call": lentz["iterations"] / max(lentz["calls"], 1)},
+    }
+
+
+def nb_kernel_at_path(args, position):
+    """B1's NB-2 family at the path's exact rows (N_u, K = 50, C = 256) at the
+    final positions: time, plain version's time and the bound, as ``phase_kernels``."""
+    x_u, y_u = args[0], args[1]
+    z = position.contiguous()
+    alpha, beta, phi = z[:, 0].contiguous(), z[:, 1:-1].T.contiguous(), torch.exp(z[:, -1]).contiguous()
+    t = (y_u, x_u, alpha, beta, phi)
+    ms = time_ms(lambda: glm_fused.glm_fused_parts(NB_FAMILY, *t), warmup=3, reps=20)
+    plain_ms = time_ms(lambda: glm_fused.glm_fused_parts_reference(NB_FAMILY, *t), warmup=1, reps=5)
+    n, k, c = x_u.shape[0], x_u.shape[1], z.shape[0]
+    flops = 4.0 * n * k * c + float(CORE_OPS[NB_FAMILY]) * n * c
+    nbytes = 4.0 * (n * k + n + 2 * k * c + 3 * c + 2 * c)
+    return {"shape": {"n": n, "k": k, "c": c}, "ms": ms, "plain_ms": plain_ms,
+            **tensor_core_bounds(n, k, c, CORE_OPS[NB_FAMILY], flops, nbytes)}
+
+
+def phase_censored_nb_path(x):
+    """B1's NB-2 family launched once a gradient call (the exact rows), the
+    lccdf's inc_beta on the card (the top-coded rows); no other hand kernel,
+    no plain version, no layout copy."""
+    res, wall, model, args, data, lentz = drive_censored_nb(x)
+    launches = dict(glm_fused.LAUNCHES)
+    others = {**chol_blocked.LAUNCHES, **lv_rk4.LAUNCHES, **glm_fused.LAUNCHES_FMA,
+              **{f: n for f, n in launches.items() if f != NB_FAMILY}}
+    plain, copies = sum(glm_fused.PLAIN_CALLS.values()), sum(glm_fused.LAYOUT_COPIES.values())
+    require(launches[NB_FAMILY] == res.n_grad_calls > 0,
+            f"censored_nb_path: {launches[NB_FAMILY]} NB-2 launches for {res.n_grad_calls} gradient calls")
+    require(plain == 0, f"censored_nb_path: the plain version ran {plain} times")
+    require(copies == 0, f"censored_nb_path: {copies} layout copies")
+    require(not any(others.values()), f"censored_nb_path: another hand kernel ran: {others}")
+    report = check_censored_nb(res, wall, model, args, data, lentz)
+    at_path = nb_kernel_at_path(args, res.position[:, -1, :])
+    emit("censored_nb_path", **report, nb2_kernel_launches=launches[NB_FAMILY], plain_calls=plain, layout_copies=copies,
+         nb2_kernel_at_path=at_path)
+    return res, model, args, launches[NB_FAMILY], at_path
+
+
+def profile_inc_beta_share(res, model, args, transitions=5):
+    """Only with ``--profile``: ``phase_profile`` on the path, and the device
+    time inside ``inc_beta``'s profiler ranges (the Lentz loop, the
+    quadrature) as shares of the traced device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from math_tpu_torch.infer.nuts import ChainNoise, LogpGrad
+    from math_tpu_torch.infer.pooled import sample_pooled
+
+    kernels, total_us, calls = phase_profile(res, model, args, label="profile_censored_nb", transitions=transitions)
+    fn = LogpGrad(model.logp, args)
+    noise = ChainNoise(torch.Generator(device="cuda").manual_seed(8), "cuda", torch.float32)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            sample_pooled(noise, res.final_state, fn, res.step_size, res.inv_mass, transitions, max_depth=res.max_depth)
+        torch.cuda.synchronize()
+    device_total = device_kernels(prof)[1]
+
+    def range_us(name):
+        """Device time of the kernels launched inside the host-side range ``name``."""
+        spans = [e for e in prof.events() if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+        return sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0) for e in spans)
+
+    lentz_us, quad_us = range_us("inc_beta.lentz"), range_us("inc_beta.quadrature")
+    emit("profile_censored_nb_inc_beta", grad_calls_traced=fn.calls, device_ms_traced=device_total / 1e3,
+         lentz_device_ms=lentz_us / 1e3, quadrature_device_ms=quad_us / 1e3,
+         lentz_device_share=lentz_us / device_total, quadrature_device_share=quad_us / device_total,
+         lentz_ms_per_grad_call=lentz_us / 1e3 / max(fn.calls, 1), quadrature_ms_per_grad_call=quad_us / 1e3 / max(fn.calls, 1))
+
+
+def sweep_gate(label, got, want):
+    """Worst errors of float32 (card) against float64 (CPU): ``(value err,
+    [grad err per argument])``; non-finite values must sit where float64's are."""
+    (v32, g32), (v64, g64) = got, want
+    fin = torch.isfinite(v64)
+    require(bool((torch.isfinite(v32) == fin).all()), f"sweep {label}: non-finite values where float64's are finite, or the reverse")
+    require(bool((v32[~fin] == v64[~fin]).all()), f"sweep {label}: non-finite values differ")
+    verr = float(((v32 - v64).abs() / v64.abs().clamp_min(1.0))[fin].max()) if bool(fin.any()) else 0.0
+    gerr = []
+    for a, b in zip(g32, g64):
+        require(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()), f"sweep {label}: a non-finite gradient")
+        gerr.append(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+    grad_rtol = SWEEP_GRAD_RTOL_INC_BETA if label.startswith(INC_BETA_FAMILIES) else SWEEP_GRAD_RTOL
+    require(verr <= SWEEP_VALUE_RTOL, f"sweep {label}: value error {verr} > {SWEEP_VALUE_RTOL}")
+    require(max(gerr, default=0.0) <= grad_rtol, f"sweep {label}: gradient error {gerr} > {grad_rtol}")
+    return {"value_rel_err": verr, "grad_rel_err": max(gerr, default=0.0), "grad_rtol": grad_rtol}
+
+
+def drive_univariate_sweep(rows=1024, cols=64, device="cuda", draws=RNG_DRAWS):
+    """Every density and cdf of ``dists/{continuous,discrete,more}.py`` at one
+    valid row a family, broadcast to ``(rows, cols)`` with a seeded jitter,
+    float32 on ``device`` against float64 on CPU tensors, values and gradients
+    in every float argument; the special functions likewise and their values
+    against scipy in float64 (``inc_beta``, ``gamma_p``, ``gamma_q``); every
+    ``_rng``: ``draws`` draws, moments within 5 Monte-Carlo errors of the
+    closed forms, the same draws again from the same seed."""
+    t0 = time.perf_counter()
+    funcs = {}
+    for label, fn, args, floats in univariate_models.sweep_cases(rows, cols):
+        got = univariate_models.evaluate(fn, args, floats, device, torch.float32)
+        want = univariate_models.evaluate(fn, args, floats, "cpu", torch.float64)
+        funcs[label] = sweep_gate(label, got, want)
+    special_report = {}
+    for name, args in univariate_models.special_inputs(rows, cols).items():
+        floats = univariate_models.SPECIAL_FLOATS[name]
+        got = univariate_models.evaluate(name, args, floats, device, torch.float32)
+        want = univariate_models.evaluate(name, args, floats, "cpu", torch.float64)
+        special_report[name] = sweep_gate(name, got, want)
+        if name in univariate_models.SCIPY_SPECIAL:
+            t64 = [torch.tensor(a, dtype=torch.float64) for a in args]
+            port64 = getattr(special, name)(*t64).numpy()
+            ref = univariate_models.SCIPY_SPECIAL[name](*args)
+            scale = np.maximum(ref, 1.0 - ref) if name == "inc_beta" else np.maximum(np.abs(ref), 1e-30)
+            err = float(np.max(np.abs(port64 - ref) / scale))
+            require(err <= SCIPY_RTOL[name], f"sweep {name}: float64 against scipy {err} > {SCIPY_RTOL[name]}")
+            special_report[name]["float64_vs_scipy_rel_err"] = err
+    rngs = {}
+    for name in univariate_models.RNG_ROWS:
+        gen = lambda: torch.Generator(device=device).manual_seed(11)  # noqa: E731
+        x = univariate_models.rng_draws(name, gen(), draws)
+        z = univariate_models.rng_z_scores(name, x)
+        require(max(abs(v) for v in z.values()) < RNG_Z_LIMIT, f"sweep {name}_rng: {z} Monte-Carlo errors")
+        require(torch.equal(x, univariate_models.rng_draws(name, gen(), draws)), f"sweep {name}_rng: a replay from the seed differs")
+        rngs[name] = z
+    return {"functions": funcs, "special": special_report, "rngs": rngs, "seconds": time.perf_counter() - t0}
+
+
+def phase_univariate_sweep():
+    rep = drive_univariate_sweep()
+    worst = lambda d, k: max(d.items(), key=lambda kv: kv[1][k])  # noqa: E731
+    emit("univariate_sweep", shape=[1024, 64], n_functions=len(rep["functions"]), n_special=len(rep["special"]),
+         n_rngs=len(rep["rngs"]), rng_draws=RNG_DRAWS, seconds=rep["seconds"],
+         worst_value=worst(rep["functions"], "value_rel_err")[0], worst_grad=worst(rep["functions"], "grad_rel_err")[0],
+         tolerance={"value_rtol": SWEEP_VALUE_RTOL, "grad_rtol": SWEEP_GRAD_RTOL, "grad_rtol_inc_beta": SWEEP_GRAD_RTOL_INC_BETA,
+                    "rng_z": RNG_Z_LIMIT},
+         functions=rep["functions"], special=rep["special"], rngs=rep["rngs"])
+
+
 def main():
     profiling = "--profile" in sys.argv[1:]
     smi = phase_device()
@@ -2939,6 +3226,15 @@ def main():
     if profiling:
         phase_profile(vs_res, vs_model, vs_args_, label="profile_varying_slopes")
     del vs_res, vs_model, vs_args_
+
+    nb_res, nb_model, nb_args, nb_launches, nb_at_path = phase_censored_nb_path(x)
+    nb_entry = next(e for e in entries if e["name"] == f"glm_fused[{NB_FAMILY}]")
+    nb_entry["launches"] += nb_launches
+    nb_entry["censored_nb_path"] = {"launches": nb_launches, **nb_at_path}
+    if profiling:
+        profile_inc_beta_share(nb_res, nb_model, nb_args)
+    del nb_res, nb_model, nb_args
+    phase_univariate_sweep()
     require(len(entries) == 8, f"{len(entries)} kernel entries")
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
     print(json.dumps({"kernels": entries}), flush=True)

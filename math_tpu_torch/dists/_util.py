@@ -12,13 +12,17 @@ gradients stay nan-free at valid points.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from math_tpu_torch.utils.batch import sum_event
 
-__all__ = ["fdtype", "bcast", "as_tensors", "finish", "safe", "ok_pos", "ok_prob", "ok_simplex", "ok_ordered", "all_event"]
+__all__ = [
+    "fdtype", "bcast", "as_tensors", "finish", "finish_prod", "safe", "ok_pos", "ok_prob", "ok_simplex", "ok_ordered",
+    "all_event", "rng_params", "rng_shape",
+]
 
 
 def _like(*args):
@@ -93,6 +97,32 @@ def safe(x, ok, fill=1.0):
 def finish(lp, ok, batch_ndims=0):
     """Sum elementwise log-prob, sending invalid lanes to -inf."""
     return sum_event(torch.where(ok, lp, -float("inf")), batch_ndims)
+
+
+def finish_prod(p, ok, batch_ndims=0):
+    """Product form for plain cdfs (Stan's vectorized cdf semantics): the
+    product over every axis after the first ``batch_ndims``, NaN where an
+    argument is invalid (as in the JAX package), in that chain alone."""
+    p = torch.where(ok, p, math.nan)
+    if p.ndim <= batch_ndims:
+        return p
+    return p.flatten(batch_ndims).prod(-1)
+
+
+def rng_params(generator, *params):
+    """The parameters of an ``_rng`` as float tensors of one dtype on the
+    generator's device (the draws are made there)."""
+    dt = _like(*params)[0]
+    device = generator.device
+    return [p.to(device=device, dtype=dt) if isinstance(p, torch.Tensor)
+            else torch.as_tensor(np.asarray(p), dtype=dt, device=device) for p in params]
+
+
+def rng_shape(shape, *params):
+    """The shape of the draws: ``shape``, else the parameters' broadcast shape."""
+    if shape is not None:
+        return tuple(shape)
+    return tuple(torch.broadcast_shapes(*(p.shape for p in params)))
 
 
 def ok_pos(x):

@@ -1,10 +1,10 @@
 """Core scalar special functions under their Stan Math names.
 
-Counterpart: ``math_tpu/special/basic.py`` (every function but ``gamma_p``,
-``gamma_q`` and ``inc_beta``, which come with ``special/hyper.py`` and
-``special/incbeta.py``).  References cite the files in
+Counterpart: ``math_tpu/special/basic.py``.  References cite the files in
 ``stan/math/prim/scal/fun/`` whose behavior each function reproduces; the
-gradients come from autograd.
+gradients come from autograd, but for ``gamma_p`` and ``gamma_q`` (their
+partials in ``a`` from ``special/hyper.py``, since PyTorch's ``gammainc``
+has none) and ``inc_beta`` (``special/incbeta.py``).
 
 Arguments may be tensors, numpy arrays or Python numbers.  Non-floating
 arguments take the dtype of the floating tensors among the arguments (like
@@ -229,6 +229,72 @@ def log_rising_factorial(x, n):
     """log(x * (x+1) * ... * (x+n-1)) (ref: ``log_rising_factorial.hpp``)."""
     x, n = _f(x, n)
     return torch.lgamma(x + n) - torch.lgamma(x)
+
+
+def inc_beta(a, b, x):
+    """Regularized incomplete beta I_x(a, b) (ref: ``inc_beta.hpp``);
+    ``special/incbeta.py``'s, differentiable in a, b and x."""
+    from math_tpu_torch.special.incbeta import inc_beta as _inc_beta
+
+    return _inc_beta(a, b, x)
+
+
+def _dgamma_dz(a, z):
+    """d P(a, z) / dz = z^(a-1) e^-z / Gamma(a)."""
+    return torch.exp(-z + (a - 1.0) * torch.log(z) - torch.lgamma(a))
+
+
+class _GammaP(torch.autograd.Function):
+    """P(a, z): the value from ``torch.special.gammainc``, the partials from
+    ``grad_reg_lower_inc_gamma`` (itself differentiable when a graph is
+    built: second order, the reference's fvar<fvar<var>> instantiation)."""
+
+    @staticmethod
+    def forward(ctx, a, z):
+        ctx.save_for_backward(a, z)
+        return torch.special.gammainc(a, z)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from math_tpu_torch.special.hyper import grad_reg_lower_inc_gamma
+
+        a, z = ctx.saved_tensors
+        need_a, need_z = ctx.needs_input_grad
+        da = grad * grad_reg_lower_inc_gamma(a, z) if need_a else None
+        dz = grad * _dgamma_dz(a, z) if need_z else None
+        return da, dz
+
+
+class _GammaQ(torch.autograd.Function):
+    """Q(a, z): ``torch.special.gammaincc``, partials from ``grad_reg_inc_gamma``."""
+
+    @staticmethod
+    def forward(ctx, a, z):
+        ctx.save_for_backward(a, z)
+        return torch.special.gammaincc(a, z)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from math_tpu_torch.special.hyper import grad_reg_inc_gamma
+
+        a, z = ctx.saved_tensors
+        need_a, need_z = ctx.needs_input_grad
+        da = grad * grad_reg_inc_gamma(a, z) if need_a else None
+        dz = -grad * _dgamma_dz(a, z) if need_z else None
+        return da, dz
+
+
+def gamma_p(a, z):
+    """Regularized lower incomplete gamma P(a, z) (ref: ``gamma_p.hpp``)."""
+    a, z = torch.broadcast_tensors(*_f(a, z))
+    return _GammaP.apply(a, z)
+
+
+def gamma_q(a, z):
+    """Regularized upper incomplete gamma Q(a, z) (ref: ``gamma_q.hpp``);
+    second-order-capable partials via ``grad_reg_inc_gamma`` (see gamma_p)."""
+    a, z = torch.broadcast_tensors(*_f(a, z))
+    return _GammaQ.apply(a, z)
 
 
 # --- normal CDF family (ref: Phi.hpp, inv_Phi.hpp, Phi_approx.hpp) ----------

@@ -1,11 +1,14 @@
-"""PyTorch port: ordered transforms, ``log1m_exp``, the discrete densities and
-the three GLM densities that need them, against ``math_tpu`` (CPU, float64).
+"""PyTorch port: ordered transforms, ``log1m_exp``, every function of
+``dists/discrete.py`` and the three GLM densities that need them, against
+``math_tpu`` (CPU, float64).
 
 The points are the JAX package's own sweep (``tests/dist_fixtures.py``: the
 value rows, the invalid rows that must give ``-inf``, and the point where the
-sweep differentiates).  Values and gradients agree to ``rtol=1e-12`` (the same
-float64 arithmetic up to the order of a sum).  With ``batch_ndims=1`` each
-density equals a Python loop over the chains.
+sweep differentiates; ``CDFS`` and ``TAILS`` for the cdfs).  Values and
+gradients agree to ``rtol=1e-12`` (the same float64 arithmetic up to the
+order of a sum).  With ``batch_ndims=1`` each density equals a Python loop
+over the chains.  The cdfs are held in ``tests/test_torch_discrete_cdf.py``,
+the ``_rng`` functions in ``tests/test_torch_univariate_rng.py``.
 """
 
 import numpy as np
@@ -22,15 +25,23 @@ from math_tpu_torch import dists as td
 from math_tpu_torch import special as tspecial
 from math_tpu_torch import transforms as tt
 
+from math_tpu.dists import discrete as jdisc
+
 from dist_fixtures import FAMS
 
 RTOL = 1e-12
 C = 3
-NAMES = [
+DISCRETE = sorted({n[: -len("_lpmf")] for n in dir(jdisc) if n.endswith("_lpmf")})
+FIRST_NAMES = [
     "neg_binomial_2_log", "categorical_logit", "ordered_logistic",
     "neg_binomial_2_log_glm", "ordered_logistic_glm", "categorical_logit_glm",
 ]
+NAMES = FIRST_NAMES + [n for n in DISCRETE if n not in FIRST_NAMES]
 FAM = {f.name: f for f in FAMS if f.name in NAMES}
+DIFFERENTIABLE = [n for n in NAMES if FAM[n].point is not None]
+# one outcome a row, parameters elementwise: a chain's parameters are (C, 1)
+ELEMENTWISE = {n for n in DISCRETE if not n.startswith(("categorical", "ordered"))}
+
 
 
 def t64(a, grad=False):
@@ -110,7 +121,9 @@ def test_values_at_the_sweep_rows(name):
         want = lp_of(jd, name)(*args)
         assert got.ndim == 0 and got.dtype == torch.float64
         close(got, want)
-        close(got, fam.oracle(*args), rtol=1e-9)
+        # the sweep's own tolerance for the families added later (its oracle,
+        # scipy on expit(-20) for bernoulli_logit, is good to ~2e-9 there)
+        close(got, fam.oracle(*args), rtol=1e-9 if name in FIRST_NAMES else fam.val_tol)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -121,7 +134,7 @@ def test_invalid_rows_give_neg_inf(name):
 
 
 @pytest.mark.parametrize("propto", [False, True])
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", DIFFERENTIABLE)
 def test_value_and_grad_at_the_sweep_point(name, propto):
     """Differentiated at the sweep's point, the parameters as tensors (so with
     ``propto`` only their constant-free terms stay, as for JAX arrays)."""
@@ -146,13 +159,13 @@ def _chains(p, rng):
     return p[None] + 0.1 * rng.normal(size=(C,) + p.shape)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", DIFFERENTIABLE)
 def test_batch_ndims_1_is_a_loop_over_chains(name):
     fam = FAM[name]
     rng = np.random.default_rng(1)
     data = fam.args[: len(fam.args) - len(fam.point)]
     params = [t64(_chains(p, rng)) for p in fam.point]
-    if name == "neg_binomial_2_log":  # elementwise: one (eta, phi) per chain against all of y
+    if name in ELEMENTWISE:  # elementwise: one parameter set per chain against all of y
         params = [p[:, None] for p in params]
     got = lp_of(td, name)(*data, *params, propto=True, batch_ndims=1)
     want = torch.stack([lp_of(td, name)(*data, *[q[c] for q in params], propto=True) for c in range(C)])
@@ -169,3 +182,4 @@ def test_a_chain_with_unordered_cuts_alone_is_neg_inf():
     bb = np.stack([beta, beta, beta])
     got = td.ordered_logistic_glm_lpmf(y, x, t64(bb), t64(cb), batch_ndims=1)
     assert np.isfinite(float(got[0])) and float(got[1]) == -np.inf and np.isfinite(float(got[2]))
+

@@ -1,8 +1,13 @@
 """PyTorch port: the rules every file of ``math_tpu_torch`` keeps.
 
-- the port, ``chip_smoke.py`` and ``tools/constrained_models.py`` (the user
-  models ``chip_smoke.py`` drives) import nothing of JAX, of the JAX package or
-  of Triton (an AST walk over every import statement);
+- the port, ``chip_smoke.py`` and ``tools/{constrained,univariate}_models.py``
+  (the user models ``chip_smoke.py`` drives) import nothing of JAX, of the
+  JAX package or of Triton (an AST walk over every import statement);
+- the special functions and the densities never take a tensor's values to
+  the host: no ``.cpu()``, ``.numpy()``, ``.item()`` or ``.tolist()`` and no
+  scipy in ``math_tpu_torch/special/`` and ``math_tpu_torch/dists/`` (numpy
+  builds constant node tables at import; a CUDA tensor computes on the card
+  or raises);
 - lower layers do not import higher ones (the layer order of
   ``tests/test_layering.py``);
 - the kernel loader raises a clear error where there is no ``nvcc`` and does
@@ -55,7 +60,7 @@ LAYER = {
 
 
 def _port_files():
-    out = ["chip_smoke.py", "tools/constrained_models.py"]
+    out = ["chip_smoke.py", "tools/constrained_models.py", "tools/univariate_models.py", "tools/univariate_phases.py"]
     for dirpath, _, files in os.walk(PKG):
         for fn in sorted(files):
             if fn.endswith(".py"):
@@ -96,7 +101,9 @@ def test_port_has_the_slice_modules():
         "math_tpu_torch/infer/smc.py", "math_tpu_torch/infer/resume.py", "math_tpu_torch/io/checkpoint.py",
         "math_tpu_torch/io/draw_store.py", "math_tpu_torch/ops/ode.py", "math_tpu_torch/ops/lv_rk4.py",
         "math_tpu_torch/models/lotka_volterra.py", "math_tpu_torch/transforms/matrix.py", "math_tpu_torch/ops/linalg.py",
-        "tools/constrained_models.py",
+        "tools/constrained_models.py", "math_tpu_torch/special/incbeta.py", "math_tpu_torch/special/hyper.py",
+        "math_tpu_torch/special/bessel.py", "math_tpu_torch/special/owens_t.py", "math_tpu_torch/dists/more.py",
+        "math_tpu_torch/dists/deprecated.py", "tools/univariate_models.py",
     ):
         assert rel in files, rel
     for name in KERNEL_SOURCES:
@@ -248,3 +255,15 @@ def test_config_defaults():
     assert os.path.basename(cfg.kernel_build_dir) == "_build"
     with open(os.path.join(ROOT, ".gitignore"), encoding="utf-8") as f:
         assert "math_tpu_torch/_build/" in f.read().split()
+
+
+HOST_READS = (".cpu(", ".numpy(", ".item(", ".tolist(")
+
+
+@pytest.mark.parametrize("rel", [r for r in _port_files() if r.startswith(("math_tpu_torch/special/", "math_tpu_torch/dists/"))])
+def test_no_host_round_trip_in_special_and_dists(rel):
+    with open(os.path.join(ROOT, rel), encoding="utf-8") as f:
+        src = f.read()
+    found = [h for h in HOST_READS if h in src]
+    assert not found, f"{rel} reads tensor values to the host: {found}"
+    assert not [m for m in _imports_of(os.path.join(ROOT, rel)) if m.split(".")[0] == "scipy"], f"{rel} imports scipy"

@@ -85,7 +85,7 @@ VALUE_ONLY = {
     "multiply_log": [(0.0, 0.0)],
 }
 CONSTANTS = ("LOG_TWO", "LOG_PI", "LOG_SQRT_TWO_PI", "LOG_TWO_PI", "SQRT_TWO")
-NOT_PORTED = {"gamma_p", "gamma_q", "inc_beta"}  # they come with special/hyper.py and incbeta.py
+NOT_PORTED = {"gamma_p", "gamma_q", "inc_beta"}  # held in tests/test_torch_{special_more,incbeta}.py
 FROM_OTHER_MODULES = {  # math_tpu/special/__init__.py re-exports these from bessel / hyper / incbeta / owens_t
     "owens_t", "inc_beta_dda", "inc_beta_ddb", "inc_beta_ddz", "grad_2F1", "grad_F32", "bessel_first_kind",
     "bessel_second_kind", "modified_bessel_first_kind", "modified_bessel_second_kind", "F32", "grad_inc_beta",
