@@ -29,7 +29,17 @@ not 0 and no result line is printed):
    gradient through the public dispatchers of the three other GLM families at
    the same width.  The bernoulli tensor-core kernel must have been launched
    exactly once per chain-batched gradient call of the sampler, the float32
-   kernels and the plain version never.
+   kernels and the plain version never.  Then ``postfit_glm``: the bernoulli
+   kernel at 1 and 4 lanes against its plain version, and, with the counts
+   set to 0 just before and read just after, what a user does after the fit
+   on the main path's model and draws, float32 on the card: PSIS-LOO / WAIC
+   over all 12,800 draws x 100,000 observations (the vectorised PSIS held
+   against the per-observation loop on 2,000 observations), MAP
+   (``jacobian=False``) against the float64 MAP on CPU tensors, Laplace
+   (1,000 draws) and Pathfinder (4 paths) against the NUTS moments,
+   posterior-predictive ``y_rep`` replayed from a seed, a Stan CSV round
+   trip.  The kernel's launches must equal the phase's evaluations (plain
+   version: the Laplace Hessian's one pass; no layout copy).
 5. ``ordinal_path`` and ``categorical_path``, each with the counts set to 0
    just before its sampler and read just after: 256-chain NUTS (150 + 50,
    ``max_depth=6``, float32) through ``run_pooled_chains`` on an ordinal
@@ -156,7 +166,7 @@ counts set to 0 just before it and read just after:
   version, ``torch.linalg.cholesky`` + ``solve_triangular`` and the bound;
   ragged B = 1, 3, 7, 17 with a block that is not positive definite (its NaN
   pattern the plain version's);
-- ``constrained_prior``: 1024-chain ``run_pooled_chains`` (100 + 100, depth
+- ``constrained_prior``: 1024-chain ``run_pooled_chains`` (50 + 50, depth
   5) on a prior over one block of every constrained ``Transform`` class
   (``tools/constrained_models.py``): each constrained moment within 5
   Monte-Carlo errors (from the bulk ESS) of its closed form; the block kernel
@@ -194,7 +204,7 @@ The univariate slice, after those:
   ``gamma_p``, ``gamma_q``, ``owens_t`` and the four Bessel functions, in
   float32 on the card against float64 on CPU tensors (values and gradients
   in every float argument; ``inc_beta`` / ``gamma_p`` / ``gamma_q`` also
-  against scipy in float64), and every ``_rng``: 10^6 draws from a CUDA
+  against scipy in float64), and every ``_rng``: 250,000 draws from a CUDA
   generator, moments within 5 Monte-Carlo errors of the closed forms, the
   same draws again from the same seed.  Prints the worst error of each.
 
@@ -230,6 +240,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2850,7 +2861,7 @@ def phase_varying_slopes_path():
     return res, model, args, launches
 
 
-def drive_constrained_prior(*, chains=C_PRIOR, num_warmup=100, num_samples=100, max_depth=5, seed=0, device="cuda",
+def drive_constrained_prior(*, chains=C_PRIOR, num_warmup=50, num_samples=50, max_depth=5, seed=0, device="cuda",
                             dtype=torch.float32):
     """NUTS on the prior-only model of every constrained Transform
     (``tools/constrained_models.py``), 1024 chains, accept 0.8, inits
@@ -2858,7 +2869,12 @@ def drive_constrained_prior(*, chains=C_PRIOR, num_warmup=100, num_samples=100, 
     inverse Wishart's mean was 6.3 Monte-Carlo errors off after 100 warmup
     iterations; from radius 0.5 within 3 errors at depth 6, 5.1 at depth 5;
     the first chip run, 1024 chains at depth 5, within 3.0, in half the
-    calls of depth 6: PERF.md, PR 9).  Returns ``(res, wall_s, model)``."""
+    calls of depth 6: PERF.md).  50 + 50 of the earlier 100 + 100, to leave
+    the script its margin on a slow host (PERF.md section 4): 50 warmup
+    iterations adapt it as 60 do (step size 0.359 against 0.370, mean depth
+    3.97 against 3.95, no divergence); the worst moment reads 4.07 errors
+    there, 3.04 at 60 + 60 (PERF.md section 7).
+    Returns ``(res, wall_s, model)``."""
     model = constrained_models.make_constrained_prior()
     gen = torch.Generator(device=device).manual_seed(seed)
     z0 = model.initial_positions(gen, chains, INIT_RADIUS, device=device, dtype=dtype)
@@ -2931,10 +2947,12 @@ NB_FLOAT32_LIMIT = {"logp_rel": 1e-5, "grad_rel": 1e-3}
 SWEEP_VALUE_RTOL, SWEEP_GRAD_RTOL, SWEEP_GRAD_RTOL_INC_BETA = 1e-4, 1e-3, 5e-3
 INC_BETA_FAMILIES = ("student_t_", "beta_", "binomial_", "neg_binomial", "beta_binomial_", "inc_beta")
 # float64 port against scipy: inc_beta relative to max(I, 1 - I) (XLA's
-# continued fraction), gamma_p / gamma_q relative (PyTorch's gammainc: 1.6e-9
-# in its asymptotic band, ROADMAP C2)
-SCIPY_RTOL = {"inc_beta": 1e-11, "gamma_p": 5e-9, "gamma_q": 5e-9}
-RNG_DRAWS, RNG_Z_LIMIT = 1_000_000, 5.0
+# continued fraction), gamma_p / gamma_q relative (XLA's series and continued
+# fraction: 5.0e-14 on the sweep's rows on the CPU)
+SCIPY_RTOL = {"inc_beta": 1e-11, "gamma_p": 1e-12, "gamma_q": 1e-12}
+# 250,000 draws an _rng (10^6 before: cut for the script's time; the gate
+# counts Monte-Carlo errors)
+RNG_DRAWS, RNG_Z_LIMIT = 250_000, 5.0
 
 
 def drive_censored_nb(x, *, chains=C_NB, num_warmup=60, num_samples=60, max_depth=6, seed=0, device="cuda",
@@ -3158,6 +3176,241 @@ def phase_univariate_sweep():
          functions=rep["functions"], special=rep["special"], rngs=rep["rngs"])
 
 
+# --- postfit_glm: what a user does after the main path's fit ------------------
+
+# Gates of postfit_glm, set from a CPU rehearsal at a small size and the
+# first chip runs (PERF.md section 6): float32 on the card against float64.
+POSTFIT_LIMITS = {
+    # vectorised PSIS against the per-observation loop, both float64: read
+    # 2.7e-14 / 1.7e-13 (elpd) and 2.1e-15 / 3.9e-13 (k), rehearsal / card
+    "psis_elpd_abs": 1e-11, "psis_k_abs": 1e-11,
+    # float32 MAP on the card against the float64 MAP, in posterior sd: read
+    # 2.0e-6 / 1.8e-5 (the float32 noise floor), rehearsal / card
+    "map_sd": 1e-3,
+    # the issue's 0.1 is ~3 Monte-Carlo errors of 1,000 draws for the largest
+    # of 51 coordinates (0.032 sd each): 0.15
+    "laplace_mean_sd": 0.15, "laplace_sd_rel": 0.15, "laplace_k": 0.7,
+    "pathfinder_mean_sd": 0.2, "gq_mc_errors": 5.0,
+}
+POSTFIT_CHECK_OBS = 2000  # observations the plain PSIS loop checks
+POSTFIT_GQ_DRAWS = 256
+
+
+def glm_pointwise_log_lik(theta, x, y):
+    """The main path's model's per-observation log likelihood, ``(S, dim) ->
+    (S, N)``: ``y log sigmoid(eta) + (1 - y) log sigmoid(-eta)``."""
+    eta = theta[:, :1] + theta[:, 1:] @ x.mT
+    return -F.softplus(-(2.0 * y[None, :] - 1.0) * eta)
+
+
+def glm_y_rep(params, gen, x):
+    """Posterior-predictive replicates of the main path's model (a generated
+    quantities block): ``(p, y_rep)`` for every draw, ``y_rep ~
+    bernoulli(p)`` drawn from ``gen``."""
+    p = torch.sigmoid(params["alpha"][:, None] + params["beta"] @ x.mT)
+    return {"p": p, "y_rep": torch.bernoulli(p, generator=gen)}
+
+
+def b1_at_lanes(x_main, lanes):
+    """B1 (bernoulli-logit) at the main path's width with 1-4 lanes against the
+    plain version in float64 (the tolerances of ``compare``), its time, the
+    plain version's and its bound."""
+    out = {}
+    for c in lanes:
+        arrays = make_inputs("bernoulli_logit", N_MAIN, K_MAIN, c, seed=500 + c, scale=0.1, x=x_main)
+        errs, _ = compare("bernoulli_logit", arrays, grad_atol=1e-3 * N_MAIN / 3000.0)
+        t32 = on_gpu(arrays, torch.float32)
+        ms = time_ms(lambda: glm_fused.glm_fused_parts("bernoulli_logit", *t32), warmup=3, reps=20)
+        plain_ms = time_ms(lambda: glm_fused.glm_fused_parts_reference("bernoulli_logit", *t32), warmup=2, reps=10)
+        n, k = N_MAIN, K_MAIN
+        flops = 4.0 * n * k * c + float(CORE_OPS["bernoulli_logit"]) * n * c
+        nbytes = 4.0 * (n * k + n + 2 * k * c + 3 * c)
+        out[f"c{c}"] = {"ms": ms, "plain_ms": plain_ms, **tensor_core_bounds(n, k, c, CORE_OPS["bernoulli_logit"], flops, nbytes),
+                        "max_abs_err": max(errs.values()), "abs_err": errs,
+                        "tile_plan": glm_fused.glm_tile_plan(n, k, c, torch.cuda.get_device_properties(0).multi_processor_count)}
+    return out
+
+
+def moments_in_sd(draws, nuts_mean, nuts_sd):
+    d = draws.double().cpu().numpy().reshape(-1, nuts_mean.size)
+    return float(np.max(np.abs(d.mean(0) - nuts_mean) / nuts_sd)), float(np.max(np.abs(d.std(0) / nuts_sd - 1.0)))
+
+
+def drive_postfit_glm(x, y, position, *, device="cuda", dtype=torch.float32, seed=0, check_obs=POSTFIT_CHECK_OBS,
+                      limits=POSTFIT_LIMITS):
+    """The layer around a fitted posterior on the main path's model and draws
+    ``position (chains, draws, dim)``: PSIS-LOO and WAIC, MAP
+    (``jacobian=False``), Laplace (1,000 draws), Pathfinder (the reference's
+    defaults), posterior-predictive generated quantities and a Stan CSV round
+    trip, in ``dtype`` on ``device``; then the float64 references on CPU
+    tensors (the MAP; the per-observation PSIS loop, host numpy).  Returns
+    ``(report, evaluations, wall)`` with the density evaluations (value and
+    gradient, or value) each step made through the model, which the kernel
+    counts are held against."""
+    from math_tpu_torch import diagnostics, io as tio
+    from math_tpu_torch.diagnostics import psis as psis_mod
+    from math_tpu_torch.infer import laplace_sample, map_estimate, pathfinder
+
+    k = x.shape[1]
+    model = glm_logistic.make(k)
+    xt = torch.tensor(x, dtype=dtype, device=device)
+    yt = torch.tensor(y, dtype=dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pos = position.to(device=device, dtype=dtype)
+    nuts = pos.double().cpu().numpy().reshape(-1, k + 1)
+    nuts_mean, nuts_sd = nuts.mean(0), nuts.std(0)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    report, evaluations, seconds = {}, {}, {}
+
+    sync()
+    t_all = time.perf_counter()
+    # 1. PSIS-LOO and WAIC over every draw
+    t0 = time.perf_counter()
+    ll = diagnostics.pointwise_log_lik(glm_pointwise_log_lik, pos, xt, yt)
+    with warnings.catch_warnings():  # the counts the warnings give are in the report
+        warnings.simplefilter("ignore")
+        lo = diagnostics.loo(ll)
+        wa = diagnostics.waic(ll)
+    sync()
+    seconds["loo_waic"] = time.perf_counter() - t0
+    require(tuple(ll.shape) == tuple(pos.shape[:2]) + (x.shape[0],), f"pointwise shape {tuple(ll.shape)}")
+    require(math.isfinite(lo.elpd_loo) and math.isfinite(wa.elpd_waic), "loo / waic not finite")
+    check = ll.reshape(-1, ll.shape[-1])[:, :check_obs].double().cpu().numpy()
+    report["loo"] = {"draws": int(check.shape[0]), "observations": int(ll.shape[-1]), "elpd_loo": lo.elpd_loo,
+                     "se_elpd_loo": lo.se_elpd_loo, "p_loo": lo.p_loo, "max_k": float(lo.pareto_k.max()),
+                     "n_k_above_0.7": lo.n_bad_k, "elpd_waic": wa.elpd_waic, "p_waic": wa.p_waic,
+                     "n_high_var": wa.n_high_var, "seconds": seconds["loo_waic"]}
+    del ll
+
+    # 2. MAP (Stan's optimize: jacobian=False)
+    t0 = time.perf_counter()
+    opt = map_estimate(model.logp, model.dim, args=(xt, yt), jacobian=False, unadjusted_fn=model.logp_unadjusted,
+                       dtype=dtype, device=device)
+    sync()
+    seconds["map"] = time.perf_counter() - t0
+    evaluations["map"] = opt.num_grad_calls
+    # 3. Laplace: the mode again (jacobian=True), one Hessian, 1,000 draws
+    t0 = time.perf_counter()
+    lap = laplace_sample(model.logp, gen, model.dim, 1000, args=(xt, yt), dtype=dtype, device=device)
+    sync()
+    seconds["laplace"] = time.perf_counter() - t0
+    evaluations["laplace"] = lap.opt.num_grad_calls + 2  # the Hessian's forward and log_p of the draws
+    # 4. Pathfinder, the reference's defaults
+    t0 = time.perf_counter()
+    pf = pathfinder(model.logp, gen, model.dim, args=(xt, yt), dtype=dtype, device=device)
+    sync()
+    seconds["pathfinder"] = time.perf_counter() - t0
+    evaluations["pathfinder"] = pf.num_grad_calls + pf.num_logp_calls
+    # 5. generated quantities: y_rep on a thinned 256 draws, and a replay
+    t0 = time.perf_counter()
+    thin = pos.reshape(-1, k + 1)[:: max(1, pos.shape[0] * pos.shape[1] // POSTFIT_GQ_DRAWS)][:POSTFIT_GQ_DRAWS]
+    gq = model.generate_quantities(glm_y_rep, thin, xt, key=torch.Generator(device=device).manual_seed(seed + 1))
+    replay = model.generate_quantities(glm_y_rep, thin, xt, key=torch.Generator(device=device).manual_seed(seed + 1))
+    sync()
+    seconds["generate_quantities"] = time.perf_counter() - t0
+    # 6. Stan CSV round trip of the draws
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cons = model.transform_draws(pos)
+        paths = tio.write_stan_csv(os.path.join(tmp, "fit"), cons)
+        csv_ok = True
+        for c in (0, len(paths) - 1):
+            names, mat = tio.read_stan_csv(paths[c])
+            back = torch.tensor(mat[:, 7:], dtype=dtype)
+            want = torch.cat([cons["alpha"][c][:, None], cons["beta"][c]], dim=1).cpu()
+            csv_ok = csv_ok and names[7:] == ["alpha"] + [f"beta.{i + 1}" for i in range(k)] and torch.equal(back, want)
+    seconds["stan_csv"] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_all
+
+    # the references and the gates (after the counts were read by the caller)
+    def references():
+        t0 = time.perf_counter()
+        lw_k = [psis_mod.psis_smooth(-check[:, i]) for i in range(check.shape[1])]
+        plain_elpd = np.array([np.logaddexp.reduce(lw + check[:, i]) - np.logaddexp.reduce(lw)
+                               for i, (lw, _) in enumerate(lw_k)])
+        plain_k = np.array([kk for _, kk in lw_k])
+        elpd_err = float(np.max(np.abs(lo.pointwise[:check_obs].cpu().numpy() - plain_elpd)))
+        k_err = float(np.max(np.abs(lo.pareto_k[:check_obs].cpu().numpy() - plain_k)))
+        require(elpd_err < limits["psis_elpd_abs"], f"vectorised PSIS elpd {elpd_err} from the plain loop")
+        require(k_err < limits["psis_k_abs"], f"vectorised PSIS k {k_err} from the plain loop")
+        report["loo"].update(check_observations=check_obs, plain_seconds=time.perf_counter() - t0,
+                             max_abs_elpd_err_vs_plain=elpd_err, max_abs_k_err_vs_plain=k_err)
+
+        ref = map_estimate(model.logp, model.dim, args=(torch.tensor(x, dtype=torch.float64), torch.tensor(y, dtype=torch.float64)),
+                           jacobian=False, unadjusted_fn=model.logp_unadjusted, dtype=torch.float64, device="cpu")
+        map_err = float(np.max(np.abs(opt.theta.double().cpu().numpy() - ref.theta.numpy()) / nuts_sd))
+        require(map_err < limits["map_sd"], f"float32 MAP {map_err} posterior sd from the float64 MAP")
+        require(bool(torch.isfinite(opt.theta).all()) and math.isfinite(float(opt.grad_norm)), "MAP not finite")
+        report["map"] = {"iterations": opt.iterations, "grad_calls": opt.num_grad_calls, "converged": opt.converged,
+                         "grad_norm": float(opt.grad_norm), "value": float(opt.value), "seconds": seconds["map"],
+                         "float64_cpu": {"iterations": ref.iterations, "grad_calls": ref.num_grad_calls,
+                                         "converged": ref.converged, "grad_norm": float(ref.grad_norm)},
+                         "max_err_vs_float64_in_posterior_sd": map_err}
+
+        lap_mean, lap_sd = moments_in_sd(lap.draws, nuts_mean, nuts_sd)
+        w = (lap.log_p - lap.log_q).double().cpu().numpy()
+        lap_k = psis_mod.psis_smooth(w)[1]
+        require(bool(torch.isfinite(lap.draws).all()) and np.isfinite(w).all(), "Laplace draws or weights not finite")
+        require(lap_mean < limits["laplace_mean_sd"], f"Laplace mean {lap_mean} NUTS sd off")
+        require(lap_sd < limits["laplace_sd_rel"], f"Laplace sd {lap_sd} off NUTS's (relative)")
+        require(lap_k < limits["laplace_k"], f"Laplace PSIS k {lap_k}")
+        report["laplace"] = {"draws": int(lap.draws.shape[0]), "map_iterations": lap.opt.iterations,
+                             "grad_calls": lap.opt.num_grad_calls, "converged": lap.opt.converged,
+                             "grad_norm": float(lap.opt.grad_norm), "max_mean_err_in_nuts_sd": lap_mean,
+                             "max_rel_sd_err": lap_sd, "psis_k": lap_k, "seconds": seconds["laplace"]}
+
+        pf_mean, pf_sd = moments_in_sd(pf.draws, nuts_mean, nuts_sd)
+        require(bool(torch.isfinite(pf.draws).all()), "Pathfinder draws not finite")
+        require(pf_mean < limits["pathfinder_mean_sd"], f"Pathfinder mean {pf_mean} NUTS sd off")
+        report["pathfinder"] = {"k_hat": pf.k_hat, "path_elbos": [float(e) for e in pf.path_elbos],
+                                "best_iters": [int(i) for i in pf.best_iters], "grad_calls": pf.num_grad_calls,
+                                "logp_calls": pf.num_logp_calls, "max_mean_err_in_nuts_sd": pf_mean,
+                                "max_rel_sd_err": pf_sd, "seconds": seconds["pathfinder"]}
+
+        p, y_rep = gq["p"].double(), gq["y_rep"].double()
+        mc = float(torch.sqrt((p * (1.0 - p)).sum()) / p.numel())
+        gq_z = float((y_rep.mean() - p.mean()).abs()) / mc
+        require(tuple(y_rep.shape) == (thin.shape[0], x.shape[0]), f"y_rep shape {tuple(y_rep.shape)}")
+        require(gq_z < limits["gq_mc_errors"], f"mean y_rep {gq_z} Monte-Carlo errors from mean p")
+        require(torch.equal(gq["y_rep"], replay["y_rep"]), "generated quantities not replayed from the seed")
+        report["generate_quantities"] = {"draws": int(thin.shape[0]), "mean_y_rep": float(y_rep.mean()),
+                                         "mean_p": float(p.mean()), "z": gq_z, "replay_equal": True,
+                                         "seconds": seconds["generate_quantities"]}
+        require(csv_ok, "Stan CSV round trip not equal")
+        report["stan_csv"] = {"files": len(paths), "round_trip_equal": True, "seconds": seconds["stan_csv"]}
+        return report
+
+    return references, evaluations, wall
+
+
+def phase_postfit_glm(x, y, position, b1_entry):
+    """postfit_glm: B1 at 1 and 4 lanes against its plain version, then the
+    layer around the main path's posterior on the card (``drive_postfit_glm``)
+    with B1's launches held to the evaluations (plain version: the Laplace
+    Hessian's one differentiable pass; no layout copy); B4 factors the
+    Laplace precision.  Returns the B4 launches."""
+    small = b1_at_lanes(x, (1, 4))
+    glm_fused.reset_counts()
+    chol_blocked.reset_counts()
+    references, evaluations, wall = drive_postfit_glm(x, y, position)
+    launches = dict(glm_fused.LAUNCHES)
+    plain, copies, fma = dict(glm_fused.PLAIN_CALLS), dict(glm_fused.LAYOUT_COPIES), dict(glm_fused.LAUNCHES_FMA)
+    chol_launches = chol_blocked.LAUNCHES[chol_blocked.KERNEL]
+    chol_plain = chol_blocked.PLAIN_CALLS[chol_blocked.KERNEL]
+    total = sum(evaluations.values())
+    require(launches["bernoulli_logit"] == total, f"B1 launches {launches} against {evaluations} evaluations")
+    require(plain["bernoulli_logit"] == 1 and sum(plain.values()) == 1, f"plain-version calls {plain}")
+    require(all(v == 0 for v in copies.values()) and all(v == 0 for v in fma.values()), (copies, fma))
+    require(chol_launches == 1 and chol_plain == 0, f"B4: {chol_launches} launches, {chol_plain} plain calls; "
+            "one Laplace factorisation expected")
+    report = references()
+    b1_entry["launches"] += launches["bernoulli_logit"]
+    b1_entry["postfit_glm"] = {"launches": launches["bernoulli_logit"], **small}
+    emit("postfit_glm", wall_s=wall, evaluations=evaluations, kernel_launches=launches["bernoulli_logit"],
+         plain_calls=plain["bernoulli_logit"], chol_block_launches=chol_launches, b1_small_lanes=small, **report)
+    return chol_launches
+
+
 def main():
     profiling = "--profile" in sys.argv[1:]
     smi = phase_device()
@@ -3172,6 +3425,7 @@ def main():
     if profiling:
         args = (torch.tensor(x, device="cuda"), torch.tensor(y, device="cuda"))
         phase_profile(res, glm_logistic.make(K_MAIN), args)
+    postfit_chol_launches = phase_postfit_glm(x, y, res.position, entries[0])
     del res
 
     phase_sample_path(x, y, beta_true)
@@ -3195,6 +3449,7 @@ def main():
     entries += [ord_entry, cat_entry]
 
     gp_res, gp_model, gp_x, gp_y = phase_gp_path(chol_entry)
+    chol_entry["launches"] += postfit_chol_launches
     entries.append(chol_entry)
     if profiling:
         phase_profile_gp(gp_res, gp_model, gp_x, gp_y)

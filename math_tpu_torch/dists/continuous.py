@@ -15,8 +15,8 @@ families).  Semantics preserved:
   function takes a key and draws on its device; the draws cannot equal
   JAX's, they follow the same constructions.
 - The gamma-family cdfs go through ``special.gamma_p`` / ``gamma_q`` (the
-  JAX package calls ``jsp.gammainc`` directly): values from PyTorch's
-  ``gammainc``, partials in the shape from ``special/hyper.py``.
+  JAX package calls ``jsp.gammainc`` directly): XLA's values and the
+  partials in the shape, from ``special/hyper.py``.
 
 Invalid parameters yield ``-inf`` (see ``_util``), with double-where
 sanitization for nan-free gradients.

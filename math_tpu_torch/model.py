@@ -110,6 +110,28 @@ class LogDensity:
         lead = tuple(positions.shape[:-1])
         return {name: v.reshape(lead + tuple(v.shape[1:])) for name, v in cons.items()}
 
+    def generate_quantities(self, gq_fn, positions, *data, key=None):
+        """Standalone generated quantities over saved draws (the Stan
+        ``standalone_gqs`` service: re-run a generated-quantities block
+        against an existing posterior sample without re-sampling).
+
+        ``gq_fn(params, *data)`` — or, when ``key=`` (a ``torch.Generator``)
+        is given, ``gq_fn(params, generator, *data)`` for ``*_rng``
+        quantities such as posterior-predictive replicates — is chain-batched
+        like ``log_prob_fn``: ``params`` holds every draw along a leading
+        axis, and it returns a tensor, or a dict / tuple / list of them, with
+        that axis first.  ``positions`` is any (..., dim) batch of
+        unconstrained draws; every draw goes through one call (the JAX
+        package vmaps a per-draw function), and the draw axes are restored.
+        The same generator state gives the same output.
+        """
+        pos = torch.as_tensor(positions)
+        lead = tuple(pos.shape[:-1])
+        params = self.constrain(pos.reshape(-1, self.dim))
+        with torch.no_grad():
+            out = gq_fn(params, *data) if key is None else gq_fn(params, key, *data)
+        return _tree_map(lambda v: v.reshape(lead + tuple(v.shape[1:])), out)
+
     def initial_positions(self, generator, num_chains, init_radius=2.0, *,
                           device=None, dtype=None):
         """Stan-style uniform(-2, 2) unconstrained inits, drawn on ``device``
@@ -119,6 +141,14 @@ class LogDensity:
         dtype = cfg.default_dtype if dtype is None else dtype
         u = torch.rand((num_chains, self.dim), generator=generator, device=device, dtype=dtype)
         return (2.0 * u - 1.0) * init_radius
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def make_log_density(

@@ -11,6 +11,12 @@ compile pathology of another compiler and have no twin.
 
 The ``*_reference`` functions are whole-function references by
 ``torch.linalg``, for tests and timing only; the port never calls them.
+
+The JAX package's names ``cholesky_decompose_tpu``,
+``mdivide_left_tri_low_tpu`` and ``spd_solve_logdiag_tpu`` are aliases of the
+functions above: they take the reference's ``threshold`` and ignore it.
+``mdivide_left_tri_low_blocked`` is the reference's blocked forward
+substitution.
 """
 
 from __future__ import annotations
@@ -44,6 +50,47 @@ def cholesky_decompose(a, block_size=None):
     """Lower Cholesky factor of ``a (..., n, n)`` (ref:
     cholesky_decompose.hpp); NaN for a matrix that is not positive definite."""
     return cholesky_blocked(a, block_size=block_size)
+
+
+def mdivide_left_tri_low_blocked(L, b, block_size: int = 256):
+    """``L^-1 b`` for lower-triangular ``L`` by blocked forward substitution
+    (ref: mdivide_left_tri_low.hpp; the JAX package's function of this name):
+    block j solves ``L_jj y_j = b_j - L_j,<j y_<j``; operands padded to whole
+    blocks with a unit diagonal.  Differentiable through autograd."""
+    vec = b.ndim == L.ndim - 1
+    if vec:
+        b = b[..., None]
+    n = L.shape[-1]
+    nb = max(1, -(-n // block_size))
+    npad = nb * block_size - n
+    if npad:
+        unit_tail = torch.cat([torch.zeros(n, dtype=L.dtype, device=L.device), torch.ones(npad, dtype=L.dtype, device=L.device)])
+        L = torch.nn.functional.pad(L, (0, npad, 0, npad)) + torch.diag(unit_tail)
+        b = torch.nn.functional.pad(b, (0, 0, 0, npad))
+    ys = []
+    for j in range(nb):
+        s = j * block_size
+        rhs = b[..., s:s + block_size, :]
+        if ys:
+            rhs = rhs - L[..., s:s + block_size, :s] @ torch.cat(ys, dim=-2)
+        ys.append(torch.linalg.solve_triangular(L[..., s:s + block_size, s:s + block_size], rhs, upper=False))
+    y = torch.cat(ys, dim=-2)[..., :n, :]
+    return y[..., 0] if vec else y
+
+
+def cholesky_decompose_tpu(a, threshold=None, block_size=None):
+    """``cholesky_decompose`` under the JAX package's name (no threshold here)."""
+    return cholesky_decompose(a, block_size=block_size)
+
+
+def mdivide_left_tri_low_tpu(L, b, threshold=None, block_size=None):
+    """``mdivide_left_tri_low`` under the JAX package's name (no threshold here)."""
+    return mdivide_left_tri_low(L, b)
+
+
+def spd_solve_logdiag_tpu(a, b, threshold=None, block_size=None):
+    """``spd_solve_logdiag`` under the JAX package's name (no threshold here)."""
+    return spd_solve_logdiag(a, b, block_size=block_size)
 
 
 def spd_solve_logdiag_reference(a, b):

@@ -21,6 +21,21 @@ import torch
 
 from math_tpu_torch.ops import cholesky as _cholesky
 
+__all__ = ["cholesky_decompose", "mdivide_left", "mdivide_right", "mdivide_left_tri_low",
+    "mdivide_right_tri_low", "mdivide_left_spd", "mdivide_left_ldlt", "ldlt_factor", "log_determinant",
+    "log_determinant_spd", "log_determinant_ldlt", "masked_diagonal", "determinant", "inverse",
+    "inverse_spd", "quad_form", "quad_form_sym", "quad_form_diag", "trace_quad_form",
+    "trace_inv_quad_form_ldlt", "trace_gen_quad_form", "multiply_lower_tri_self_transpose", "tcrossprod",
+    "crossprod", "matrix_exp", "scale_matrix_exp_multiply", "matrix_exp_multiply", "matrix_power",
+    "eigenvalues_sym", "eigenvectors_sym", "singular_values", "qr_Q", "qr_R", "qr_thin_Q", "qr_thin_R",
+    "csr_matrix_times_vector", "dot_self", "columns_dot_self", "rows_dot_self", "distance",
+    "squared_distance", "mdivide_left_tri", "mdivide_right_tri", "mdivide_right_ldlt", "mdivide_right_spd",
+    "trace_gen_inv_quad_form_ldlt", "chol2inv", "matrix_exp_2x2", "csr_extract_w", "csr_extract_v",
+    "csr_extract_u", "csr_to_dense_matrix", "csr_u_to_z", "autocorrelation", "autocovariance",
+    "cumulative_sum", "sort_indices_asc", "sort_indices_desc", "rank", "softmax", "log_softmax",
+]
+
+
 
 def _t(x):
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))

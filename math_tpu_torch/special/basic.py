@@ -2,9 +2,9 @@
 
 Counterpart: ``math_tpu/special/basic.py``.  References cite the files in
 ``stan/math/prim/scal/fun/`` whose behavior each function reproduces; the
-gradients come from autograd, but for ``gamma_p`` and ``gamma_q`` (their
-partials in ``a`` from ``special/hyper.py``, since PyTorch's ``gammainc``
-has none) and ``inc_beta`` (``special/incbeta.py``).
+gradients come from autograd, but for ``gamma_p`` and ``gamma_q`` (values
+and partials from ``special/hyper.py``) and ``inc_beta``
+(``special/incbeta.py``).
 
 Arguments may be tensors, numpy arrays or Python numbers.  Non-floating
 arguments take the dtype of the floating tensors among the arguments (like
@@ -245,14 +245,17 @@ def _dgamma_dz(a, z):
 
 
 class _GammaP(torch.autograd.Function):
-    """P(a, z): the value from ``torch.special.gammainc``, the partials from
-    ``grad_reg_lower_inc_gamma`` (itself differentiable when a graph is
-    built: second order, the reference's fvar<fvar<var>> instantiation)."""
+    """P(a, z): the value XLA's ``igamma`` computes (``hyper.igamma_values``),
+    the partials from ``grad_reg_lower_inc_gamma`` (itself differentiable when
+    a graph is built: second order, the reference's fvar<fvar<var>>
+    instantiation)."""
 
     @staticmethod
     def forward(ctx, a, z):
+        from math_tpu_torch.special.hyper import igamma_values
+
         ctx.save_for_backward(a, z)
-        return torch.special.gammainc(a, z)
+        return igamma_values(a, z)
 
     @staticmethod
     def backward(ctx, grad):
@@ -266,12 +269,15 @@ class _GammaP(torch.autograd.Function):
 
 
 class _GammaQ(torch.autograd.Function):
-    """Q(a, z): ``torch.special.gammaincc``, partials from ``grad_reg_inc_gamma``."""
+    """Q(a, z): XLA's ``igammac`` (``hyper.igamma_values``), partials from
+    ``grad_reg_inc_gamma``."""
 
     @staticmethod
     def forward(ctx, a, z):
+        from math_tpu_torch.special.hyper import igamma_values
+
         ctx.save_for_backward(a, z)
-        return torch.special.gammaincc(a, z)
+        return igamma_values(a, z, upper=True)
 
     @staticmethod
     def backward(ctx, grad):

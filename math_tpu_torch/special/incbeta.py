@@ -119,22 +119,36 @@ def _continued_fraction(a, b, x):
     float32 an element whose delta flickers by an ulp about 1 keeps the whole
     batch at the 200-iteration cap).  Profiler range ``inc_beta.lentz``."""
     with torch.profiler.record_function("inc_beta.lentz"):
-        return _lentz(a, b, x)
+        num_iterations = 200 if x.dtype == torch.float32 else 600
+        h, it = _lentz(lambda its: zip(_numerators(its, a, b, x), (None,) * len(its)), torch.zeros_like(x), num_iterations)
+    LENTZ["calls"] += 1
+    LENTZ["iterations"] += it - 1
+    return h
 
 
-def _lentz(a, b, x):
-    eps_half = torch.finfo(x.dtype).eps / 2.0
-    num_iterations = 200 if x.dtype == torch.float32 else 600
-    h = torch.full_like(x, eps_half)  # the denominator 0 is below ``small``
-    one = torch.ones_like(x)
-    c_prev, d_prev = h, torch.zeros_like(x)
-    done = torch.zeros_like(x, dtype=torch.bool)
+def _lentz(terms, b0, num_iterations, done=None):
+    """``b0 + a1 / (b1 + a2 / (b2 + ...))`` by Lentz-Thompson-Barnett over
+    every element of ``b0`` at once; ``(value, iterations + 1)``.
+
+    ``terms(its)`` gives the pairs ``(a_it, b_it)`` of the iterations ``its``
+    (a block of ``_CHECK_EVERY``); ``b_it`` None means 1.  A ``b0`` below
+    ``small`` = eps/2 counts as ``small``.  Each element stops being tested
+    once ``|delta - 1| < eps/2`` (``done``: elements not to be tested at
+    all); the batch is tested once a block (one host synchronisation) and the
+    loop ends when every element is done or at ``num_iterations``."""
+    eps_half = torch.finfo(b0.dtype).eps / 2.0
+    h = torch.where(b0.abs() < eps_half, eps_half, b0)
+    one = torch.ones_like(b0)
+    c_prev, d_prev = h, torch.zeros_like(b0)
+    done = torch.zeros_like(b0, dtype=torch.bool) if done is None else done
     it = 1
     while it < num_iterations:
-        for num in _numerators(range(it, min(it + _CHECK_EVERY, num_iterations)), a, b, x):
-            c = torch.addcdiv(one, num, c_prev)
+        its = range(it, min(it + _CHECK_EVERY, num_iterations))
+        for num, den in terms(its):
+            den = one if den is None else den
+            c = torch.addcdiv(den, num, c_prev)
             c = torch.where(c.abs() < eps_half, eps_half, c)
-            d = torch.addcmul(one, num, d_prev)
+            d = torch.addcmul(den, num, d_prev)
             d = torch.where(d.abs() < eps_half, eps_half, d).reciprocal()
             delta = c * d
             h = h * delta
@@ -143,9 +157,7 @@ def _lentz(a, b, x):
             it += 1
         if bool(done.all()):
             break
-    LENTZ["calls"] += 1
-    LENTZ["iterations"] += it - 1
-    return h
+    return h, it
 
 
 def _edge_cases(a, b, x):

@@ -20,6 +20,7 @@ import torch
 
 
 from math_tpu_torch.models import eight_schools
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 # the modules (the packages export functions of the same name)
 jadvi = importlib.import_module("math_tpu.infer.advi")

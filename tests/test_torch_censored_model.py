@@ -44,6 +44,7 @@ from math_tpu_torch.special import incbeta
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import univariate_models as um  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 N, K, CHAINS = 2000, 8, 8
 RTOL = ATOL = 1e-10
@@ -169,3 +170,17 @@ def test_lccdf_tail_against_scipy(data):
     per_row = dists.neg_binomial_2_lccdf(data["U"] - 1.0, torch.tensor(mu[2]), phi[2], batch_ndims=1)
     assert per_row.shape == mu[2].shape
     np.testing.assert_allclose(per_row.numpy(), want[2], rtol=1e-12)
+
+
+def test_sweep_evaluates_every_special_function_as_a_special_function():
+    """``univariate_models.evaluate`` sums a special function by row; the
+    names ``dists`` re-exports from ``special`` (``inc_beta``, ``owens_t``)
+    take the special-function path, not a density's ``batch_ndims``."""
+    from math_tpu_torch import special
+
+    for name, args in um.special_inputs(rows=3, cols=4).items():
+        value, grads = um.evaluate(name, args, um.SPECIAL_FLOATS[name], "cpu", torch.float64)
+        want = getattr(special, name)(*[torch.tensor(a, dtype=torch.float64) if np.asarray(a).dtype.kind == "f"
+                                        else torch.tensor(a) for a in args]).sum(-1)
+        np.testing.assert_allclose(value.numpy(), want.detach().numpy(), rtol=1e-12)
+        assert len(grads) == len(um.SPECIAL_FLOATS[name])

@@ -23,6 +23,7 @@ from math_tpu.ops import chol_pallas as jcp
 from math_tpu_torch import get_config
 from math_tpu_torch.ops import chol_blocked as tcb
 from math_tpu_torch.ops import cholesky as tch
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL = 1e-9
 N, B = 40, 16  # the second-order tests' size: three blocks, the last one ragged
@@ -308,3 +309,44 @@ def test_second_and_third_order_through_the_block_function():
         t = t64(T0, grad=True)
         thirds.append(torch.autograd.grad(hessian(fn, t, create_graph=True).diagonal().sum(), t)[0])
     close(thirds[0], thirds[1], rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("n,block,vec", [(37, 16, True), (37, 16, False), (48, 16, False), (5, 256, True)])
+def test_mdivide_left_tri_low_blocked_is_the_reference(n, block, vec):
+    """The JAX package's blocked forward substitution (padded to whole blocks
+    with a unit diagonal), value and the gradients in ``L`` and ``b``."""
+    from math_tpu.ops import cholesky as jch
+
+    rng = np.random.default_rng(n + block)
+    L = np.tril(rng.normal(size=(2, n, n))) + 3.0 * np.eye(n)
+    b = rng.normal(size=(2, n) if vec else (2, n, 3))
+    want = np.asarray(jch.mdivide_left_tri_low_blocked(jnp.asarray(L), jnp.asarray(b), block_size=block))
+    want_g = [np.asarray(g) for g in jax.grad(lambda l, bb: jch.mdivide_left_tri_low_blocked(l, bb, block_size=block).sum(),
+                                              (0, 1))(jnp.asarray(L), jnp.asarray(b))]
+    Lt, bt = torch.tensor(L, requires_grad=True), torch.tensor(b, requires_grad=True)
+    got = tch.mdivide_left_tri_low_blocked(Lt, bt, block_size=block)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-12, atol=1e-13)
+    for g, w in zip(torch.autograd.grad(got.sum(), (Lt, bt)), want_g):
+        np.testing.assert_allclose(np.tril(g.numpy()) if g.ndim == 3 and g.shape[-1] == n and g.shape[-2] == n else g.numpy(),
+                                   np.tril(w) if w.ndim == 3 and w.shape[-1] == n and w.shape[-2] == n else w,
+                                   rtol=1e-10, atol=1e-12)
+
+
+def test_the_reference_names_are_aliases():
+    """``cholesky_decompose_tpu``, ``mdivide_left_tri_low_tpu`` and
+    ``spd_solve_logdiag_tpu`` give the JAX package's values (its threshold
+    accepted and not used)."""
+    from math_tpu.ops import cholesky as jch
+
+    rng = np.random.default_rng(3)
+    a = rng.normal(size=(20, 20))
+    a = a @ a.T + 20 * np.eye(20)
+    b = rng.normal(size=(20, 2))
+    L = np.linalg.cholesky(a)
+    np.testing.assert_allclose(tch.cholesky_decompose_tpu(torch.tensor(a), threshold=4).numpy(),
+                               np.asarray(jch.cholesky_decompose_tpu(jnp.asarray(a))), rtol=1e-11, atol=1e-12)
+    np.testing.assert_allclose(tch.mdivide_left_tri_low_tpu(torch.tensor(L), torch.tensor(b)).numpy(),
+                               np.asarray(jch.mdivide_left_tri_low_tpu(jnp.asarray(L), jnp.asarray(b))), rtol=1e-11)
+    for g, w in zip(tch.spd_solve_logdiag_tpu(torch.tensor(a), torch.tensor(b)),
+                    jch.spd_solve_logdiag_tpu(jnp.asarray(a), jnp.asarray(b))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-11, atol=1e-12)

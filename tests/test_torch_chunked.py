@@ -30,6 +30,7 @@ from math_tpu_torch.diagnostics import convergence as tconv
 from math_tpu_torch.infer import adapt as tadapt
 from math_tpu_torch.infer import run_pooled_chains, run_pooled_chains_chunked, sample_nuts
 from math_tpu_torch.models import eight_schools as tes
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 PREC_CHOL = np.array([[1.0, 0.0, 0.0, 0.0], [0.5, 1.0, 0.0, 0.0], [0.0, 0.5, 1.0, 0.0], [0.0, 0.0, 0.5, 1.0]])
 COV = np.linalg.inv(PREC_CHOL @ PREC_CHOL.T)

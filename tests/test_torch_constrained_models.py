@@ -29,6 +29,7 @@ from math_tpu.ops import linalg as jl
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import constrained_models as cm  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 GROUPS, K, PER_GROUP, CHAINS = 8, 3, 10, 8
 RTOL = ATOL = 1e-10

@@ -27,6 +27,7 @@ from math_tpu_torch import dists as td
 from math_tpu_torch.dists import continuous as tcont
 
 from dist_fixtures import FAMS
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL, GRAD_RTOL, CDF_RTOL = 1e-11, 1e-9, 1e-10
 CONT = {n[: -len("_lpdf")] for n in dir(jcont) if n.endswith("_lpdf")}

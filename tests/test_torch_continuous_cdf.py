@@ -25,6 +25,7 @@ from math_tpu.dists import continuous as jcont
 from math_tpu_torch import dists as td
 
 from dist_fixtures import CDFS, TAILS
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 GRAD_RTOL, CDF_RTOL, GAMMA_GRAD_RTOL = 1e-9, 1e-10, 1e-8
 # JAX's log_ndtr gradient at z = -20.7 is 3.1e-9 off (mpmath); PyTorch's 2.6e-14

@@ -28,6 +28,7 @@ from math_tpu_torch import transforms as tt
 from math_tpu.dists import discrete as jdisc
 
 from dist_fixtures import FAMS
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL = 1e-12
 C = 3

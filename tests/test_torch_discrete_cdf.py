@@ -23,6 +23,7 @@ from math_tpu_torch import dists as td
 from math_tpu_torch.dists import discrete as tdisc
 
 from dist_fixtures import CDFS, TAILS
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 C = 3
 DISCRETE = sorted({n[: -len("_lpmf")] for n in dir(jdisc) if n.endswith("_lpmf")})

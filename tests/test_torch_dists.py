@@ -16,6 +16,7 @@ import torch
 
 from math_tpu import dists as jd
 from math_tpu_torch import dists as td
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL = 1e-12
 RNG = np.random.default_rng(0)

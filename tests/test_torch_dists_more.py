@@ -23,6 +23,7 @@ from math_tpu_torch import dists as td
 from math_tpu_torch.dists import more as tmore
 
 from dist_fixtures import CDFS, FAMS
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL, MAT_RTOL, GRAD_RTOL = 1e-11, 1e-10, 1e-9
 C = 3

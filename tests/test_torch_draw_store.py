@@ -15,6 +15,7 @@ import pytest
 from math_tpu.io import draw_store as jds
 
 from math_tpu_torch.io import draw_store as ds
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 
 @pytest.fixture(scope="module", autouse=True)

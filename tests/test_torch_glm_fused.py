@@ -20,6 +20,7 @@ from math_tpu import dists as jdists
 from math_tpu.ops import pallas_glm as pg
 
 from math_tpu_torch.ops import glm_fused as gf
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RNG = np.random.default_rng(0)
 N, K, C = 3000, 7, 5

@@ -40,6 +40,7 @@ from math_tpu_torch.ops import glm_fused as gf
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke  # noqa: E402  (the models the GPU run samples)
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RNG = np.random.default_rng(0)
 N, D, C, K = 3000, 7, 5, 5

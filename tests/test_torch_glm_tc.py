@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from math_tpu.ops import pallas_glm as pg
 from math_tpu_torch.ops import glm_fused as gf
 from test_torch_kernel_designs import split, tc_product
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SMS = 132  # the H100's SMs, for the tile plan

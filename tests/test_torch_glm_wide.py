@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from math_tpu_torch.ops import glm_fused as gf
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMS = 132

@@ -32,6 +32,7 @@ from math_tpu_torch.infer import pooled as tpooled
 from math_tpu_torch.models import gp_regression as tgp
 from math_tpu_torch.ops import chol_blocked
 from math_tpu_torch.ops import gp as tgp_ops
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 C = 4
 

@@ -34,6 +34,7 @@ import torch
 import math_tpu.special as js
 from math_tpu.special import incbeta as jib
 from math_tpu_torch.special import incbeta as tib
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 VALS = [0.1, 0.5, 1.0, 2.5, 10.0, 80.0]
 XS = [1e-8, 0.01, 0.3, 0.5, 0.7, 0.99, 1.0 - 1e-8]

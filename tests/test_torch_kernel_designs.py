@@ -33,6 +33,7 @@ from math_tpu_torch import get_config, update_config
 from math_tpu_torch.ops import _build
 from math_tpu_torch.ops import chol_blocked as tcb
 from math_tpu_torch.ops import glm_fused as gf
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SMS = 132  # the H100's SMs, for the tile plan

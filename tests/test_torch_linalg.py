@@ -20,6 +20,7 @@ import torch
 
 from math_tpu.ops import linalg as jl
 from math_tpu_torch.ops import linalg as tl
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL, ATOL = 1e-10, 1e-10
 RNG = np.random.default_rng(0)

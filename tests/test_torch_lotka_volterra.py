@@ -25,6 +25,7 @@ from math_tpu.models import lotka_volterra as jlv
 from math_tpu_torch import dists as tdists
 from math_tpu_torch.models import lotka_volterra as tlv
 from math_tpu_torch.ops import lv_rk4
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 N_POINTS = 16
 TOL = {"rk4": 1e-10, "rk45": 1e-9}

@@ -21,6 +21,7 @@ from math_tpu_torch.model import make_log_density
 from math_tpu_torch.models import eight_schools as tes
 from math_tpu_torch.models import glm_logistic as tglm
 from math_tpu_torch.ops import glm_fused
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL = 1e-10
 C = 4

@@ -24,6 +24,7 @@ import torch
 
 import math_tpu.dists as jd
 from math_tpu_torch import dists as td
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL, ATOL = 1e-10, 1e-10
 C, K = 3, 3

@@ -28,6 +28,7 @@ from math_tpu_torch.infer import adapt as tadapt
 from math_tpu_torch.infer import nuts as tnuts
 from math_tpu_torch.infer import pooled as tpooled
 from math_tpu_torch.models import eight_schools as tes
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL = 1e-12
 C, D = 4, 10

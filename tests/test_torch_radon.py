@@ -21,6 +21,7 @@ from math_tpu.ops import segment as jsegment
 
 from math_tpu_torch.models import radon as tradon
 from math_tpu_torch.ops import segment as tsegment
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 TOL = 1e-12
 S, N, C, K = 7, 23, 3, 4

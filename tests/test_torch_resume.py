@@ -29,6 +29,7 @@ from math_tpu_torch.diagnostics import convergence as tconv
 from math_tpu_torch.infer import sample_nuts_checkpointed
 from math_tpu_torch.io.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from math_tpu_torch.models import eight_schools
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 F64 = dict(dtype=torch.float64, device="cpu")
 

@@ -37,6 +37,7 @@ from math_tpu_torch.infer import nuts as tnuts
 from math_tpu_torch.infer import sample as tsample
 from math_tpu_torch.model import make_log_density
 from math_tpu_torch.models import eight_schools as tes
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL = 1e-10
 C, D, T = 5, 5, 40  # chains == dimensions: the per-chain diagonal and shared dense forms share a shape

@@ -25,6 +25,7 @@ from math_tpu_torch.infer import pooled as tpooled
 from math_tpu_torch.infer.nuts import ChainNoise, LogpGrad
 from math_tpu_torch.models import eight_schools as tes
 from math_tpu_torch.models import glm_logistic as tglm
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 
 def _mcse(draws):

@@ -23,6 +23,7 @@ import torch
 
 from math_tpu_torch.infer import ChainNoise, smc_tempered, smc_tempered_stagewise
 from math_tpu_torch.models import eight_schools
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 jsmc = importlib.import_module("math_tpu.infer.smc")
 tsmc = importlib.import_module("math_tpu_torch.infer.smc")

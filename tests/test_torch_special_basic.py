@@ -24,6 +24,7 @@ import torch
 import math_tpu.special as js
 import math_tpu_torch.special as ts
 from math_tpu_torch.special import basic as tb
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL, ATOL = 1e-12, 1e-12
 RTOL_HESSIAN = 1e-9

@@ -29,6 +29,7 @@ import math_tpu.transforms as jt
 import math_tpu_torch.transforms as tt
 from math_tpu.model import make_log_density as j_make
 from math_tpu_torch.model import make_log_density as t_make
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 RTOL, ATOL = 1e-12, 1e-12
 C = 3

@@ -23,6 +23,7 @@ from math_tpu_torch.dists import continuous, discrete, more
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import univariate_models as um  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 N = 200_000
 Z_LIMIT = 5.0

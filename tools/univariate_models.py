@@ -275,18 +275,20 @@ SPECIAL_FLOATS = {"inc_beta": (0, 1, 2), "gamma_p": (0, 1), "gamma_q": (0, 1), "
 
 def evaluate(fn_name, args, floats, device, dtype):
     """``(value (rows,) float64 on the CPU, [gradient of value.sum() in each
-    float argument])`` of ``dists.<fn_name>`` (or ``special.<fn_name>``) with
-    ``batch_ndims=1`` (the special functions elementwise, summed by row)."""
+    float argument])`` of ``dists.<fn_name>`` with ``batch_ndims=1``, or of
+    ``special.<fn_name>`` for the names of ``SPECIAL_FLOATS`` (elementwise,
+    summed by row; ``dists`` re-exports some of them, as the JAX package's
+    namespace does)."""
     tensors = []
     for i, a in enumerate(args):
         a = np.asarray(a)
         kind = dtype if a.dtype.kind == "f" else torch.int64
         t = torch.tensor(a, dtype=kind, device=device)
         tensors.append(t.requires_grad_(i in floats))
-    if hasattr(dists, fn_name):
-        value = getattr(dists, fn_name)(*tensors, batch_ndims=1)
-    else:
+    if fn_name in SPECIAL_FLOATS:
         value = getattr(special, fn_name)(*tensors).sum(-1)
+    else:
+        value = getattr(dists, fn_name)(*tensors, batch_ndims=1)
     if not floats:
         return value.detach().double().cpu(), []
     grads = torch.autograd.grad(value.sum(), [tensors[i] for i in floats], allow_unused=True)
