@@ -59,6 +59,21 @@ not 0 and no result line is printed):
    final positions are held against float64 ``torch.linalg``.  Then exact
    latent-field draws from 32 hyperparameter draws, and value and gradient of
    the latent model for 8 chains against float64.
+   Then ``forward_mode``: each kernel's ``autograd.Function`` under
+   ``torch.func.jvp`` at its path's width (B1's four families, B2, B3 at
+   N=100,000, D=50, C=256, K=5; B4 at (32, 128)) against the ``jvp`` of its
+   plain version in float64, the reverse comparison's gate carried to the
+   tangent, with the counts set to 0 just before each: one launch and no
+   plain call a primal; ``vmap`` of B1 over 2 x 128 lanes and of B4 over 2 x
+   16 blocks, one launch each; ``functional.hessian`` (forward over
+   reverse) of the main path's density at ``postfit_glm``'s MAP against
+   ``optimize.hessian`` and float64 (one B1 launch); the Hessian-vector
+   product of the GP density at a ``gp_path`` draw against float64 (whole
+   factorizations on the block kernel).  And ``stan_surface``:
+   ``integrate_1d`` with its gradient in theta on the three node sets
+   against ``scipy.integrate.quad`` (float64 and float32 on the card), and
+   six ``stan`` names that reach the block kernel on CUDA tensors against
+   float64.  The two phases must take at most 30 s together.
 7. ``eight_schools`` 64 chains on the GPU (a model without a kernel).
 
 The slice of ``sample_nuts`` and the chunked sampler, each path with the counts
@@ -125,8 +140,9 @@ each with the counts set to 0 just before it and read just after:
   NUTS draws, peak memory; the block kernel launched 16 times a 32-row
   evaluation.
 
-BASELINE config 4 as its bench drives it, after those, with the counts set to
-0 just before it and read just after:
+BASELINE config 4 as its bench drives it, with the counts set to 0 just
+before it and read just after (``kernels_lv`` right after ``wide``, before
+any sampler; the rest in the worker below):
 
 - ``kernels_lv``: the Lotka-Volterra RK4 kernel pair (``csrc/lv_rk4.cu``,
   forward solve and exact adjoint, one thread a chain) against its plain
@@ -155,8 +171,9 @@ BASELINE config 4 as its bench drives it, after those, with the counts set to
   the Newton / Powell root solvers (roots and implicit-function Jacobians) at
   64 lanes, float32 against float64 on the card.
 
-Constrained matrix and simplex parameters, after those, each path with the
-counts set to 0 just before it and read just after:
+Constrained matrix and simplex parameters, each path with the counts set to
+0 just before it and read just after (``kernels_chol_small`` right after
+``wide``, before any sampler; the two paths in the worker below):
 
 - ``kernels_chol_small``: the block kernel at the shapes of per-chain
   covariance matrices, (Cb, B) = (256, 5) (LKJ(2) correlations scaled by
@@ -181,7 +198,7 @@ counts set to 0 just before it and read just after:
   launched twice a gradient call (``multi_normal_lpdf`` and
   ``lkj_corr_lpdf``), the plain version never.
 
-The univariate slice, after those:
+The univariate slice, in the worker below:
 
 - ``censored_nb_path``: the top-coded negative-binomial regression of
   ``tools/univariate_models.py`` on the main path's 100,000 x 50 design
@@ -207,6 +224,18 @@ The univariate slice, after those:
   against scipy in float64), and every ``_rng``: 250,000 draws from a CUDA
   generator, moments within 5 Monte-Carlo errors of the closed forms, the
   same draws again from the same seed.  Prints the worst error of each.
+
+The worker: ``lv_path``, ``lv_rk45``, ``ode_family``, ``constrained_prior``,
+``varying_slopes_path``, ``censored_nb_path`` and ``univariate_sweep`` run,
+in that order and as described, in a second process of this script (``--worker``) that starts
+after the kernel phases (``kernels``, ``kernels_chol``, ``wide``,
+``kernels_lv`` and ``kernels_chol_small`` time the kernels on an idle card)
+and runs beside the phases from ``main_path`` on; both are mostly host-bound
+(one Python thread each, the card busy 8-26% of the time), so the script
+takes about the longer of the two rather than their sum.  Its counts are
+its own; it prints its phases' lines, which this process prints after its
+own, and its launches join the kernel entries.  Phase times from
+``main_path`` on are taken beside the worker.
 
 With ``--profile`` further phases trace a few sampling transitions of the
 GLM, ordinal, multinomial, radon, LV, varying-slopes and censored NB paths
@@ -239,6 +268,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -3236,6 +3266,15 @@ def moments_in_sd(draws, nuts_mean, nuts_sd):
     return float(np.max(np.abs(d.mean(0) - nuts_mean) / nuts_sd)), float(np.max(np.abs(d.std(0) / nuts_sd - 1.0)))
 
 
+def glm_map(model, xt, yt):
+    """The MAP of config 2's density ``model`` on ``(xt, yt)`` (Stan's
+    optimize, ``jacobian=False``), in their dtype on their device."""
+    from math_tpu_torch.infer import map_estimate
+
+    return map_estimate(model.logp, model.dim, args=(xt, yt), jacobian=False, unadjusted_fn=model.logp_unadjusted,
+                        dtype=xt.dtype, device=xt.device)
+
+
 def drive_postfit_glm(x, y, position, *, device="cuda", dtype=torch.float32, seed=0, check_obs=POSTFIT_CHECK_OBS,
                       limits=POSTFIT_LIMITS):
     """The layer around a fitted posterior on the main path's model and draws
@@ -3244,12 +3283,12 @@ def drive_postfit_glm(x, y, position, *, device="cuda", dtype=torch.float32, see
     defaults), posterior-predictive generated quantities and a Stan CSV round
     trip, in ``dtype`` on ``device``; then the float64 references on CPU
     tensors (the MAP; the per-observation PSIS loop, host numpy).  Returns
-    ``(report, evaluations, wall)`` with the density evaluations (value and
-    gradient, or value) each step made through the model, which the kernel
-    counts are held against."""
+    ``(report, evaluations, wall, map_theta)`` with the density evaluations
+    (value and gradient, or value) each step made through the model, which the
+    kernel counts are held against, and the float32 MAP."""
     from math_tpu_torch import diagnostics, io as tio
     from math_tpu_torch.diagnostics import psis as psis_mod
-    from math_tpu_torch.infer import laplace_sample, map_estimate, pathfinder
+    from math_tpu_torch.infer import laplace_sample, pathfinder
 
     k = x.shape[1]
     model = glm_logistic.make(k)
@@ -3284,8 +3323,7 @@ def drive_postfit_glm(x, y, position, *, device="cuda", dtype=torch.float32, see
 
     # 2. MAP (Stan's optimize: jacobian=False)
     t0 = time.perf_counter()
-    opt = map_estimate(model.logp, model.dim, args=(xt, yt), jacobian=False, unadjusted_fn=model.logp_unadjusted,
-                       dtype=dtype, device=device)
+    opt = glm_map(model, xt, yt)
     sync()
     seconds["map"] = time.perf_counter() - t0
     evaluations["map"] = opt.num_grad_calls
@@ -3336,8 +3374,7 @@ def drive_postfit_glm(x, y, position, *, device="cuda", dtype=torch.float32, see
         report["loo"].update(check_observations=check_obs, plain_seconds=time.perf_counter() - t0,
                              max_abs_elpd_err_vs_plain=elpd_err, max_abs_k_err_vs_plain=k_err)
 
-        ref = map_estimate(model.logp, model.dim, args=(torch.tensor(x, dtype=torch.float64), torch.tensor(y, dtype=torch.float64)),
-                           jacobian=False, unadjusted_fn=model.logp_unadjusted, dtype=torch.float64, device="cpu")
+        ref = glm_map(model, torch.tensor(x, dtype=torch.float64), torch.tensor(y, dtype=torch.float64))
         map_err = float(np.max(np.abs(opt.theta.double().cpu().numpy() - ref.theta.numpy()) / nuts_sd))
         require(map_err < limits["map_sd"], f"float32 MAP {map_err} posterior sd from the float64 MAP")
         require(bool(torch.isfinite(opt.theta).all()) and math.isfinite(float(opt.grad_norm)), "MAP not finite")
@@ -3380,7 +3417,7 @@ def drive_postfit_glm(x, y, position, *, device="cuda", dtype=torch.float32, see
         report["stan_csv"] = {"files": len(paths), "round_trip_equal": True, "seconds": seconds["stan_csv"]}
         return report
 
-    return references, evaluations, wall
+    return references, evaluations, wall, opt.theta.detach()
 
 
 def phase_postfit_glm(x, y, position, b1_entry):
@@ -3388,11 +3425,11 @@ def phase_postfit_glm(x, y, position, b1_entry):
     layer around the main path's posterior on the card (``drive_postfit_glm``)
     with B1's launches held to the evaluations (plain version: the Laplace
     Hessian's one differentiable pass; no layout copy); B4 factors the
-    Laplace precision.  Returns the B4 launches."""
+    Laplace precision.  Returns the B4 launches and the MAP (float32)."""
     small = b1_at_lanes(x, (1, 4))
     glm_fused.reset_counts()
     chol_blocked.reset_counts()
-    references, evaluations, wall = drive_postfit_glm(x, y, position)
+    references, evaluations, wall, map_theta = drive_postfit_glm(x, y, position)
     launches = dict(glm_fused.LAUNCHES)
     plain, copies, fma = dict(glm_fused.PLAIN_CALLS), dict(glm_fused.LAYOUT_COPIES), dict(glm_fused.LAUNCHES_FMA)
     chol_launches = chol_blocked.LAUNCHES[chol_blocked.KERNEL]
@@ -3408,7 +3445,441 @@ def phase_postfit_glm(x, y, position, b1_entry):
     b1_entry["postfit_glm"] = {"launches": launches["bernoulli_logit"], **small}
     emit("postfit_glm", wall_s=wall, evaluations=evaluations, kernel_launches=launches["bernoulli_logit"],
          plain_calls=plain["bernoulli_logit"], chol_block_launches=chol_launches, b1_small_lanes=small, **report)
-    return chol_launches
+    return chol_launches, map_theta
+
+
+# ---------------------------------------------------------------------------
+# forward_mode and stan_surface: forward mode through the kernels' rules, the
+# Hessian and Hessian-vector product of two BASELINE densities through
+# ``functional``, and the Stan name surface on the card
+# ---------------------------------------------------------------------------
+
+JVP_RTOL = 3e-4  # the reverse comparison's gradient rtol (``compare``), applied to each partial of the tangent
+
+
+def tangent_like(a, seed, scale):
+    return (np.random.default_rng(seed).normal(size=np.shape(a)) * scale).astype(np.float32)
+
+
+def glm_tangent_bound(family, p64, t64, grad_atol):
+    """The reverse comparison's gate carried to the tangent, chain by chain:
+    each partial may be off by ``grad_atol + 3e-4 |partial|`` (float64
+    partials), times its input tangent; the data tangent (plain float32
+    products, one eta recompute) by ``grad_atol + 3e-4`` of the sum of its
+    terms' magnitudes."""
+    y, x, a, b, e = p64
+    ty, tx, ta, tb, te = t64
+    _, ga, gb, ge = glm_fused.glm_fused_parts_reference(family, y, x, a, b, e)
+    bound = ta.abs() * (grad_atol + JVP_RTOL * ga.abs()) + (tb.abs() * (grad_atol + JVP_RTOL * gb.abs())).sum(0)
+    if ge is not None:
+        bound = bound + te.abs() * (grad_atol + JVP_RTOL * ge.abs())
+    eta = x @ b + a[None, :]
+    _, thetap, _ = glm_fused._core(family, eta, y[:, None], None if e is None else e[None, :])
+    terms = (thetap * (tx @ b)).abs().sum(0) + (ty[:, None] * glm_fused._dy_rows(family, eta, thetap, y, e)).abs().sum(0)
+    return bound + grad_atol + JVP_RTOL * terms
+
+
+def count_launches(fn):
+    """``(fn(), kernel launches of every kind, plain calls)`` with the counts set to 0 just before."""
+    glm_fused.reset_counts()
+    chol_blocked.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {**{k: v for k, v in glm_fused.LAUNCHES.items() if v}, **{k: v for k, v in chol_blocked.LAUNCHES.items() if v},
+                **{f"{k}_fma": v for k, v in glm_fused.LAUNCHES_FMA.items() if v}}
+    plain = {**{k: v for k, v in glm_fused.PLAIN_CALLS.items() if v}, **{k: v for k, v in chol_blocked.PLAIN_CALLS.items() if v}}
+    return out, launches, plain
+
+
+def glm_family_tangents(x_main):
+    """B1, each family at N = 100,000, D = 50, C = 256: ``torch.func.jvp`` of
+    ``GlmFused`` (float32, the kernel's partials) against the ``jvp`` of the
+    plain version in float64, tangents on alpha, beta, extra, x and y.  One
+    launch, no plain call.  Times: the rule with parameter tangents only (the
+    launch and the partials' products), with the data tangents too (one eta
+    recompute), and the plain version's ``jvp`` in float32."""
+    out = {}
+    grad_atol = 1e-3 * N_MAIN / 3000.0
+    for i, family in enumerate(glm_fused.FAMILIES):
+        arrays = make_inputs(family, N_MAIN, K_MAIN, C_MAIN, seed=600 + i, scale=0.1, x=x_main)
+        has_extra = glm_fused.HAS_EXTRA[family]
+        tans = [tangent_like(a, 610 + 10 * i + j, 0.1) if a is not None else None for j, a in enumerate(arrays)]
+        p32, t32 = on_gpu(arrays, torch.float32), on_gpu(tans, torch.float32)
+        p64, t64 = on_gpu(arrays, torch.float64), on_gpu(tans, torch.float64)
+        kernel = lambda y, x, a, b, e=None: glm_fused.GlmFused.apply(family, y, x, a, b, e)[0]  # noqa: E731
+        plain = lambda y, x, a, b, e=None: glm_fused.glm_fused_parts_reference(family, y, x, a, b, e)[0]  # noqa: E731
+        n_in = 5 if has_extra else 4
+        (_, got), launches, plain_calls = count_launches(lambda: torch.func.jvp(kernel, tuple(p32[:n_in]), tuple(t32[:n_in])))
+        require(launches == {family: 1} and not plain_calls, f"{family} jvp: launches {launches}, plain calls {plain_calls}")
+        want = torch.func.jvp(plain, tuple(p64[:n_in]), tuple(t64[:n_in]))[1]
+        bound = glm_tangent_bound(family, p64, t64, grad_atol)
+        err = (got.double() - want).abs()
+        require(bool(torch.isfinite(got).all()) and bool((err <= bound).all()),
+                f"{family} jvp: max abs err {float(err.max())}, worst err / bound {float((err / bound).max())}")
+        params = lambda: torch.func.jvp(lambda a, b, *e: kernel(p32[0], p32[1], a, b, *e),  # noqa: E731
+                                        tuple(p32[2:n_in]), tuple(t32[2:n_in]))
+        out[family] = {
+            "max_abs_err": float(err.max()), "max_err_over_bound": float((err / bound).max()), "max_abs_want": float(want.abs().max()),
+            "launches": launches[family],
+            "jvp_ms": time_ms(params, warmup=3, reps=20),
+            "jvp_with_data_tangents_ms": time_ms(lambda: torch.func.jvp(kernel, tuple(p32[:n_in]), tuple(t32[:n_in])), warmup=2, reps=10),
+            "plain_jvp_ms": time_ms(lambda: torch.func.jvp(plain, tuple(p32[:n_in]), tuple(t32[:n_in])), warmup=2, reps=5),
+        }
+        del p32, t32, p64, t64
+    return out
+
+
+def multi_tangents(x_main):
+    """B2 and B3 at N = 100,000, D = 50, C = 256, K = 5: the ``jvp`` of the
+    Function against its plain version's in float64, tangents on every
+    parameter and on x; gate: the reverse comparison's (rtol 3e-4 and
+    ``grad_atol`` on each partial) carried to the tangent as for B1."""
+    out = {}
+    grad_atol = 1e-3 * N_MAIN / 3000.0
+    specs = [(glm_fused.ORDERED, ordered_inputs, glm_fused.OrderedGlmFused, glm_fused.ordered_logistic_glm_parts_reference),
+             (glm_fused.CATEGORICAL, categorical_inputs, glm_fused.CategoricalGlmFused,
+              glm_fused.categorical_logit_glm_parts_reference)]
+    for i, (kind, make, fn, ref) in enumerate(specs):
+        y, _, *params = make(N_MAIN, K_MAIN, C_MAIN, K_CAT, seed=700 + i, scale=0.1, x=x_main)
+        floats = [x_main, *params]
+        tans = [tangent_like(a, 710 + 10 * i + j, 0.1) for j, a in enumerate(floats)]
+        yt, *p32 = with_y(y, floats, torch.float32)
+        t32 = on_gpu(tans, torch.float32)
+        _, *p64 = with_y(y, floats, torch.float64)
+        t64 = on_gpu(tans, torch.float64)
+        kernel = lambda *a: fn.apply(yt, *a)[0]  # noqa: E731
+        plain = lambda *a: ref(yt, *a)[0]  # noqa: E731
+        (_, got), launches, plain_calls = count_launches(lambda: torch.func.jvp(kernel, tuple(p32), tuple(t32)))
+        require(launches == {kind: 1} and not plain_calls, f"{kind} jvp: launches {launches}, plain calls {plain_calls}")
+        want = torch.func.jvp(plain, tuple(p64), tuple(t64))[1]
+        parts = ref(yt, *p64)[1:]
+        if kind == glm_fused.ORDERED:
+            lanes = lambda t: t.abs().sum(0)  # noqa: E731
+            x_terms = (glm_fused._ordered_eta_partials(yt, *p64) * (t64[0] @ p64[1])).abs().sum(0)
+        else:
+            lanes = lambda t: t.abs().flatten(1).sum(1)  # noqa: E731
+            thetap = glm_fused._categorical_thetap(yt, *p64)[2]
+            x_terms = (thetap * torch.einsum("nd,cdk->cnk", t64[0], p64[2])).abs().sum((1, 2))
+        # each partial's gate times its tangent; the x tangent (plain float32
+        # products, an eta recompute) as B1's data tangent
+        bound = sum(lanes(t * (grad_atol + JVP_RTOL * g.abs())) for t, g in zip(t64[1:], parts))
+        bound = bound + grad_atol + JVP_RTOL * x_terms
+        err = (got.double() - want).abs()
+        require(bool(torch.isfinite(got).all()) and bool((err <= bound).all()),
+                f"{kind} jvp: max abs err {float(err.max())}, worst err / bound {float((err / bound).max())}")
+        out[kind] = {
+            "max_abs_err": float(err.max()), "max_err_over_bound": float((err / bound).max()), "max_abs_want": float(want.abs().max()),
+            "launches": launches[kind],
+            "jvp_ms": time_ms(lambda: torch.func.jvp(lambda *a: kernel(p32[0], *a), tuple(p32[1:]), tuple(t32[1:])), warmup=3, reps=20),
+            "jvp_with_data_tangents_ms": time_ms(lambda: torch.func.jvp(kernel, tuple(p32), tuple(t32)), warmup=2, reps=10),
+            "plain_jvp_ms": time_ms(lambda: torch.func.jvp(plain, tuple(p32), tuple(t32)), warmup=2, reps=5),
+        }
+        del p32, t32, p64, t64
+    return out
+
+
+def chol_block_tangents(x_gp):
+    """B4 at (32, 128), the GP path's Schur blocks: ``jvp`` of ``_CholInvBlock``
+    (the kernel's U, W in the rule) against the plain version's in float64, a
+    symmetric tangent; gate: ``1e-4 max |want|`` (the reverse comparison's),
+    or 4x the float32 plain version's own error where that is larger.  Then
+    ``vmap`` over two halves of the batch: one launch at Cb = 32."""
+    _, d32 = gp_blocks(x_gp, get_config().cholesky_block_size, block_index=8)
+    rng = np.random.default_rng(720)
+    t = rng.normal(size=tuple(d32.shape)) * 0.01 * float(d32.abs().max())
+    dd32 = torch.tensor(t + np.swapaxes(t, -1, -2), dtype=torch.float32, device="cuda")
+    (_, (du, dw)), launches, plain_calls = count_launches(lambda: torch.func.jvp(chol_blocked._CholInvBlock.apply, (d32,), (dd32,)))
+    require(launches == {chol_blocked.KERNEL: 1} and not plain_calls, f"B4 jvp: launches {launches}, plain calls {plain_calls}")
+    _, (du64, dw64) = torch.func.jvp(chol_blocked.chol_inv_block_reference, (d32.double(),), (dd32.double(),))
+    _, (dup, dwp) = torch.func.jvp(chol_blocked.chol_inv_block_reference, (d32,), (dd32,))
+    report = {}
+    for name, got, want, plain in (("dU", du, du64, dup), ("dW", dw, dw64, dwp)):
+        err, plain_err = float((got.double() - want).abs().max()), float((plain.double() - want).abs().max())
+        gate = max(1e-4 * float(want.abs().max()), 4.0 * plain_err)
+        require(bool(torch.isfinite(got).all()) and err <= gate, f"B4 jvp {name}: max abs err {err}, gate {gate}")
+        report[name] = {"max_abs_err": err, "plain_f32_max_abs_err": plain_err, "max_abs_want": float(want.abs().max()), "gate": gate}
+    halves = d32.reshape((2, -1) + tuple(d32.shape[1:]))
+    (u2, _), launches_v, _ = count_launches(lambda: torch.func.vmap(chol_blocked._CholInvBlock.apply)(halves))
+    require(launches_v == {chol_blocked.KERNEL: 1}, f"B4 vmap over 2 halves: launches {launches_v}")
+    u1, _ = chol_blocked.chol_inv_block_parts(d32)
+    require(torch.equal(u2.reshape(d32.shape), u1), "B4 vmap: the folded launch differs from the single launch")
+    report.update(launches=1, vmap_launches=1,
+                  jvp_ms=time_ms(lambda: torch.func.jvp(chol_blocked._CholInvBlock.apply, (d32,), (dd32,)), warmup=3, reps=20),
+                  plain_jvp_ms=time_ms(lambda: torch.func.jvp(chol_blocked.chol_inv_block_reference, (d32,), (dd32,)), warmup=0, reps=1))
+    return report
+
+
+def b1_vmap_fold(x_main):
+    """``vmap`` of B1 over two parameter sets of 128 chains: one launch on
+    256 lanes, against the two single launches (the reverse comparison's
+    logp tolerance, rtol 2e-5: the lanes' row blocks differ)."""
+    y, x, a, b, _ = on_gpu(make_inputs("bernoulli_logit", N_MAIN, K_MAIN, 2 * 128, seed=730, scale=0.1, x=x_main), torch.float32)
+    a2, b2 = a.reshape(2, 128), b.reshape(K_MAIN, 2, 128).permute(1, 0, 2)
+    f = lambda a, b: glm_fused.GlmFused.apply("bernoulli_logit", y, x, a, b.contiguous(), None)[0]  # noqa: E731
+    got, launches, _ = count_launches(lambda: torch.func.vmap(f)(a2, b2))
+    require(launches == {"bernoulli_logit": 1}, f"B1 vmap: launches {launches}")
+    want = torch.stack([f(a2[v], b2[v]) for v in range(2)])
+    err = float((got - want).abs().max())
+    require(err <= 2e-5 * float(want.abs().max()), f"B1 vmap: {err} from the single launches")
+    return {"lanes": 256, "launches": 1, "max_abs_err_vs_single_launches": err}
+
+
+def glm_hessian(x, y, theta, device="cuda", dtype=torch.float32):
+    """``functional.hessian`` (forward over reverse) of BASELINE config 2's
+    log density at ``theta (dim,)`` in ``dtype`` on ``device``; beside it
+    ``infer.optimize.hessian`` (reverse over reverse, the chains' lanes) and
+    the float64 value on CPU tensors.  Returns ``(report, counts)``."""
+    from math_tpu_torch import functional
+    from math_tpu_torch.infer.optimize import hessian as rr_hessian
+
+    k = x.shape[1]
+    model = glm_logistic.make(k)
+    xt, yt = torch.tensor(x, dtype=dtype, device=device), torch.tensor(y, dtype=dtype, device=device)
+    th = theta.to(device=device, dtype=dtype)
+    f = lambda t: model.logp(t[None], xt, yt)[0]  # noqa: E731
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    glm_fused.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    fx, g, h = functional.hessian(f, th)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = {"launches": dict(glm_fused.LAUNCHES), "plain_calls": dict(glm_fused.PLAIN_CALLS)}
+    # first order under torch.func: the backward reads the kernel's partials
+    glm_fused.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    _, g1 = functional.gradient(f, th)
+    sync()
+    grad_seconds = time.perf_counter() - t0
+    counts["gradient"] = {"launches": dict(glm_fused.LAUNCHES), "plain_calls": dict(glm_fused.PLAIN_CALLS)}
+    zr = th.detach().clone().requires_grad_(True)
+    (g_ag,) = torch.autograd.grad(f(zr), zr)
+    t0 = time.perf_counter()
+    h_rr = rr_hessian(model.logp, th, (xt, yt))
+    sync()
+    rr_seconds = time.perf_counter() - t0
+    x64, y64 = torch.tensor(x, dtype=torch.float64), torch.tensor(y, dtype=torch.float64)
+    h64 = rr_hessian(model.logp, th.double().cpu(), (x64, y64))
+    scale = float(h64.abs().max())
+    err, rr_err = float((h.double().cpu() - h64).abs().max()), float((h_rr.double().cpu() - h64).abs().max())
+    asym = float((h - h.mT).abs().max())
+    report = {"dim": int(th.shape[0]), "seconds": seconds, "optimize_hessian_seconds": rr_seconds, "max_abs_h": scale,
+              "max_abs_err_vs_float64": err, "optimize_hessian_max_abs_err_vs_float64": rr_err,
+              "max_abs_diff_vs_optimize_hessian": float((h - h_rr).abs().max()), "asymmetry": asym,
+              "grad_norm": float(g.norm()), "logp": float(fx), "gradient_seconds": grad_seconds,
+              "gradient_max_abs_diff_vs_autograd": float((g1 - g_ag).abs().max()), "gradient_max_abs": float(g_ag.abs().max())}
+    return report, counts
+
+
+def gp_hvp(z, v, n=N_GP, device="cuda", dtype=torch.float32):
+    """``functional.hessian_times_vector`` of the marginal GP log density at
+    ``z (3,)`` along ``v`` in ``dtype`` on ``device`` (the blocked Cholesky,
+    ``_CholeskySolveLogdiag``'s rules); beside it the float64 value on CPU
+    tensors of the independent ``torch.linalg`` density.  Returns ``(report,
+    counts)``."""
+    from math_tpu_torch import functional
+
+    model, xt, yt = gp_setup(n, device=device, dtype=dtype)
+    zt, vt = z.to(device=device, dtype=dtype), v.to(device=device, dtype=dtype)
+    f = lambda t: model.logp(t[None], xt, yt)[0]  # noqa: E731
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    chol_blocked.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    hv = functional.hessian_times_vector(f, zt, vt)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = {"launches": chol_blocked.LAUNCHES[chol_blocked.KERNEL], "plain_calls": chol_blocked.PLAIN_CALLS[chol_blocked.KERNEL]}
+    x64, y64 = xt.double().cpu(), yt.double().cpu()
+    f64 = lambda t: gp_reference_logp(t[None], x64, y64, JITTER_GP)[0]  # noqa: E731
+    hv64 = torch.func.jvp(torch.func.grad(f64), (zt.double().cpu(),), (vt.double().cpu(),))[1]
+    err = float((hv.double().cpu() - hv64).abs().max())
+    report = {"n": n, "seconds": seconds, "hvp": hv.double().cpu().tolist(), "hvp_float64": hv64.tolist(),
+              "max_abs_err_vs_float64": err, "max_abs_want": float(hv64.abs().max())}
+    return report, counts
+
+
+FORWARD_HESSIAN_REL = 2e-5  # float32 Hessian of config 2 against float64, relative to max |H| (CPU rehearsal: 5.9e-7)
+FORWARD_HVP_REL = 2e-4  # float32 HVP of the 2000-point GP against float64, relative to max |Hv| (CPU rehearsal: 7.4e-6)
+
+
+def phase_forward_mode(x, y, theta_map, gp_z, entries):
+    """forward_mode: each kernel's forward rule at full width against its
+    plain version's (one launch a primal; ``vmap`` folded into one launch),
+    then the Hessian of config 2 at the MAP of ``postfit_glm`` and the
+    Hessian-vector product of the 2000-point GP at a posterior draw, each
+    against float64 on the CPU.  Adds the launches to the kernel entries."""
+    t_phase = time.perf_counter()
+    fam = glm_family_tangents(x_main=x)
+    multi = multi_tangents(x)
+    chol = chol_block_tangents(gp_regression.synthetic_data(N_GP, seed=0)[0])
+    fold = b1_vmap_fold(x)
+    by_name = {e["name"]: e for e in entries}
+    for family, r in fam.items():
+        by_name[f"glm_fused[{family}]"].update(jvp_ms=r["jvp_ms"], forward_mode=r)
+        by_name[f"glm_fused[{family}]"]["launches"] += r["launches"]
+    by_name["glm_fused[bernoulli_logit]"]["launches"] += 1  # the vmap fold
+    for kind, name in ((glm_fused.ORDERED, "glm_ordered_logistic"), (glm_fused.CATEGORICAL, "glm_categorical_logit")):
+        by_name[name].update(jvp_ms=multi[kind]["jvp_ms"], forward_mode=multi[kind])
+        by_name[name]["launches"] += 1
+    by_name["chol_inv_block"].update(jvp_ms=chol["jvp_ms"], forward_mode=chol)
+    by_name["chol_inv_block"]["launches"] += 2
+
+    hess, hess_counts = glm_hessian(x, y, theta_map)
+    require(hess_counts["launches"]["bernoulli_logit"] == 1 and hess_counts["plain_calls"]["bernoulli_logit"] >= 1,
+            f"GLM Hessian: {hess_counts} (one launch for the primal, the plain version for the coefficients' derivative)")
+    require(hess["max_abs_err_vs_float64"] <= FORWARD_HESSIAN_REL * hess["max_abs_h"],
+            f"GLM Hessian {hess['max_abs_err_vs_float64']} from float64 (max |H| {hess['max_abs_h']})")
+    require(hess["max_abs_diff_vs_optimize_hessian"] <= FORWARD_HESSIAN_REL * hess["max_abs_h"],
+            f"GLM Hessian {hess['max_abs_diff_vs_optimize_hessian']} from optimize.hessian (max |H| {hess['max_abs_h']})")
+    grad_counts = hess_counts["gradient"]
+    require(grad_counts["launches"]["bernoulli_logit"] == 1 and grad_counts["plain_calls"]["bernoulli_logit"] == 0,
+            f"GLM gradient under torch.func: {grad_counts} (one launch; the backward reads the kernel's partials)")
+    require(hess["gradient_max_abs_diff_vs_autograd"] <= 1e-6 * (1.0 + hess["gradient_max_abs"]),
+            f"GLM gradient under torch.func {hess['gradient_max_abs_diff_vs_autograd']} from torch.autograd's")
+    by_name["glm_fused[bernoulli_logit]"]["launches"] += 2
+    v = torch.tensor([1.0, -0.5, 0.25], dtype=torch.float64)
+    hvp, hvp_counts = gp_hvp(gp_z, v)
+    nb = -(-N_GP // get_config().cholesky_block_size)
+    require(hvp_counts["launches"] >= nb and hvp_counts["launches"] % nb == 0 and hvp_counts["plain_calls"] == 0,
+            f"GP HVP: {hvp_counts} (whole factorizations of {nb} blocks on the kernel)")
+    require(hvp["max_abs_err_vs_float64"] <= FORWARD_HVP_REL * hvp["max_abs_want"],
+            f"GP HVP {hvp['max_abs_err_vs_float64']} from float64 (max |Hv| {hvp['max_abs_want']})")
+    by_name["chol_inv_block"]["launches"] += hvp_counts["launches"]
+    seconds = time.perf_counter() - t_phase
+    emit("forward_mode", seconds=seconds, glm_families=fam, ordered_categorical=multi, chol_inv_block=chol, b1_vmap=fold,
+         glm_hessian={**hess, **hess_counts, "gate_rel": FORWARD_HESSIAN_REL},
+         gp_hvp={**hvp, **hvp_counts, "gate_rel": FORWARD_HVP_REL})
+    return seconds
+
+
+def stan_surface(device="cuda", dtype=torch.float64):
+    """``integrate_1d`` on ``device``, value and gradient in theta, for the
+    three node sets against ``scipy.integrate.quad``; then the ``stan`` names
+    that reach the blocked Cholesky on ``device`` tensors (float32 on the
+    card) against float64 on the CPU.  Returns ``(report, counts)``."""
+    import scipy.integrate
+
+    from math_tpu_torch import stan
+    from math_tpu_torch.ops.integrate import integrate_1d
+
+    report = {"integrate_1d": {}}
+    cases = {
+        "tanh_sinh": (0.0, 1.0, lambda x, t: torch.pow(x, t), lambda x, t: x**t, lambda x, t: math.log(x) * x**t if x > 0 else 0.0),
+        "exp_sinh": (0.0, math.inf, lambda x, t: torch.exp(-t * x), lambda x, t: math.exp(-t * x), lambda x, t: -x * math.exp(-t * x)),
+        "sinh_sinh": (-math.inf, math.inf, lambda x, t: torch.exp(-0.5 * (x / t) ** 2), lambda x, t: math.exp(-0.5 * (x / t) ** 2),
+                      lambda x, t: (x * x / t**3) * math.exp(-0.5 * (x / t) ** 2)),
+    }
+    theta = 1.7
+    for name, (a, b, f, f_np, df_np) in cases.items():
+        for dt, rtol in ((torch.float64, 1e-9), (torch.float32, 1e-5)):
+            t = torch.tensor(theta, dtype=dt, device=device)
+            val, grad = torch.func.grad_and_value(lambda tt: integrate_1d(f, a, b, tt))(t)[::-1]
+            want = scipy.integrate.quad(lambda xx: f_np(xx, theta), a, b, epsabs=0.0, epsrel=1e-13)[0]
+            want_g = scipy.integrate.quad(lambda xx: df_np(xx, theta), a, b, epsabs=0.0, epsrel=1e-13)[0]
+            err, gerr = abs(float(val) - want) / abs(want), abs(float(grad) - want_g) / abs(want_g)
+            require(val.device.type == torch.device(device).type and err <= rtol and gerr <= rtol,
+                    f"integrate_1d {name} {dt}: value rel err {err}, gradient rel err {gerr}, gate {rtol}")
+            report["integrate_1d"][f"{name}_{str(dt)[6:]}"] = {"value": float(val), "quad": want, "rel_err": err,
+                                                              "grad": float(grad), "quad_grad": want_g, "grad_rel_err": gerr}
+    rng = np.random.default_rng(800)
+    a = rng.normal(size=(64, 200, 200)) / np.sqrt(200.0)
+    spd = a @ np.swapaxes(a, -1, -2) + np.eye(200)
+    b = rng.normal(size=(64, 200, 3))
+    a_dev, b_dev = torch.tensor(spd, dtype=torch.float32, device=device), torch.tensor(b, dtype=torch.float32, device=device)
+    a64, b64 = torch.tensor(spd), torch.tensor(b)
+    names = {
+        "cholesky_decompose": lambda m, r: stan.cholesky_decompose(m),
+        "inverse_spd": lambda m, r: stan.inverse_spd(m),
+        "mdivide_left_spd": lambda m, r: stan.mdivide_left_spd(m, r),
+        "log_determinant_spd": lambda m, r: stan.log_determinant_spd(m),
+        "mdivide_left_ldlt": lambda m, r: stan.mdivide_left_ldlt(stan.ldlt_factor(m), r),
+        "trace_inv_quad_form_ldlt": lambda m, r: stan.trace_inv_quad_form_ldlt(stan.ldlt_factor(m), r),
+    }
+    chol_blocked.reset_counts()
+    got = {k: fn(a_dev, b_dev) for k, fn in names.items()}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = {"launches": chol_blocked.LAUNCHES[chol_blocked.KERNEL], "plain_calls": chol_blocked.PLAIN_CALLS[chol_blocked.KERNEL]}
+    report["linalg"] = {}
+    for k, fn in names.items():
+        want = fn(a64, b64)
+        err = float((got[k].double().cpu() - want).abs().max())
+        gate = 1e-4 * max(1.0, float(want.abs().max()))
+        require(got[k].device.type == torch.device(device).type and err <= gate, f"stan.{k}: max abs err {err}, gate {gate}")
+        report["linalg"][k] = {"max_abs_err": err, "max_abs_want": float(want.abs().max())}
+    report["linalg_shape"] = [64, 200, 200]
+    return report, counts
+
+
+def phase_stan_surface():
+    """stan_surface: ``integrate_1d`` on the card against scipy, and the Stan
+    names that reach B4 on CUDA tensors against float64; B4 launches counted."""
+    t0 = time.perf_counter()
+    report, counts = stan_surface()
+    require(counts["launches"] > 0 and counts["plain_calls"] == 0, f"stan names: B4 {counts}")
+    seconds = time.perf_counter() - t0
+    emit("stan_surface", seconds=seconds, chol_block_launches=counts["launches"], **report)
+    return seconds, counts["launches"]
+
+
+def start_worker(profiling):
+    """This script with ``--worker`` in a process of its own; its output is
+    read by a thread (a full pipe would stall it)."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--worker"] + (["--profile"] if profiling else [])
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    return proc, reader, lines
+
+
+def finish_worker(worker):
+    """Wait for the worker, print its phases' lines, return its result."""
+    proc, reader, lines = worker
+    rc = proc.wait()
+    reader.join()
+    result = None
+    for line in lines:
+        if line.startswith('{"worker_result"'):
+            result = json.loads(line)["worker_result"]
+        else:
+            print(line, end="", flush=True)
+    require(rc == 0 and result is not None, f"the worker's phases failed (exit code {rc})")
+    return result
+
+
+def worker_main(profiling):
+    """``lv_path``, ``lv_rk45``, ``ode_family``, ``constrained_prior``,
+    ``varying_slopes_path``, ``censored_nb_path`` and ``univariate_sweep``,
+    beside the main process; the last line is their launches."""
+    require(torch.cuda.is_available(), "the worker needs the GPU")
+    require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must stay off: the port's products are float32")
+    x = glm_logistic.synthetic_data(N_MAIN, K_MAIN)[0]
+    lv_res, lv_model, lv_args, lv_launches = phase_lv_path()
+    if profiling:
+        kernels, total_us, calls = phase_profile(lv_res, lv_model, lv_args, label="profile_lv")
+        pair_us = sum(dev_us(e) for e in kernels if lv_rk4.KERNEL in e.key)
+        emit("profile_lv_pair", device_ms_per_grad_call=pair_us / 1e3 / calls, device_share=pair_us / total_us)
+    phase_lv_rk45(lv_res.position[:, -1, :].contiguous(), lv_args[0])
+    del lv_res, lv_model, lv_args
+    phase_ode_family()
+
+    chol_launches = phase_constrained_prior()
+    vs_res, vs_model, vs_args_, vs_launches = phase_varying_slopes_path()
+    chol_launches += vs_launches
+    if profiling:
+        phase_profile(vs_res, vs_model, vs_args_, label="profile_varying_slopes")
+    del vs_res, vs_model, vs_args_
+
+    nb_res, nb_model, nb_args, nb_launches, nb_at_path = phase_censored_nb_path(x)
+    if profiling:
+        profile_inc_beta_share(nb_res, nb_model, nb_args)
+    del nb_res, nb_model, nb_args
+    phase_univariate_sweep()
+    print(json.dumps({"worker_result": {"lv_launches": lv_launches, "chol_launches": chol_launches,
+                                        "nb_launches": nb_launches, "nb_at_path": nb_at_path}}), flush=True)
 
 
 def main():
@@ -3421,11 +3892,39 @@ def main():
     ord_entry, cat_entry = phase_kernels_ordered_categorical(x)
     phase_kernels_wide()
     phase_wide(x)
+    lv_entry = phase_kernels_lv()
+    chol_entry["small_shapes"] = phase_kernels_chol_small()
+    worker = start_worker(profiling)
+    try:
+        main_phases(profiling, x, y, beta_true, entries, chol_entry, ord_entry, cat_entry)
+        result = finish_worker(worker)
+    finally:
+        if worker[0].poll() is None:
+            worker[0].kill()
+            worker[0].wait()
+    chol_entry["launches"] += result["chol_launches"]
+    lv_entry["launches"] = result["lv_launches"]
+    entries.append(lv_entry)
+    nb_entry = next(e for e in entries if e["name"] == f"glm_fused[{NB_FAMILY}]")
+    nb_entry["launches"] += result["nb_launches"]
+    nb_entry["censored_nb_path"] = {"launches": result["nb_launches"], **result["nb_at_path"]}
+    require(len(entries) == 8, f"{len(entries)} kernel entries")
+    require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }), flush=True)
+
+
+def main_phases(profiling, x, y, beta_true, entries, chol_entry, ord_entry, cat_entry):
+    """Every phase from ``main_path`` on but the worker's, in this process."""
     res = phase_main_path(x, y, beta_true, entries)
     if profiling:
         args = (torch.tensor(x, device="cuda"), torch.tensor(y, device="cuda"))
         phase_profile(res, glm_logistic.make(K_MAIN), args)
-    postfit_chol_launches = phase_postfit_glm(x, y, res.position, entries[0])
+    postfit_chol_launches, map_theta = phase_postfit_glm(x, y, res.position, entries[0])
     del res
 
     phase_sample_path(x, y, beta_true)
@@ -3453,6 +3952,10 @@ def main():
     entries.append(chol_entry)
     if profiling:
         phase_profile_gp(gp_res, gp_model, gp_x, gp_y)
+    forward_s = phase_forward_mode(x, y, map_theta, gp_res.position[0, -1, :], entries)
+    stan_s, stan_chol_launches = phase_stan_surface()
+    chol_entry["launches"] += stan_chol_launches
+    require(forward_s + stan_s <= 30.0, f"forward_mode and stan_surface took {forward_s + stan_s} s of their 30 s")
     phase_eight_schools()
 
     radon_res, radon_model, radon_data = phase_radon_path()
@@ -3463,42 +3966,9 @@ def main():
     chol_entry["launches"] += phase_resume_gp()
     chol_entry["launches"] += phase_smc_gp(gp_res.position)
 
-    lv_entry = phase_kernels_lv()
-    lv_res, lv_model, lv_args, lv_entry["launches"] = phase_lv_path()
-    entries.append(lv_entry)
-    if profiling:
-        kernels, total_us, calls = phase_profile(lv_res, lv_model, lv_args, label="profile_lv")
-        pair_us = sum(dev_us(e) for e in kernels if lv_rk4.KERNEL in e.key)
-        emit("profile_lv_pair", device_ms_per_grad_call=pair_us / 1e3 / calls, device_share=pair_us / total_us)
-    phase_lv_rk45(lv_res.position[:, -1, :].contiguous(), lv_args[0])
-    del lv_res, lv_model, lv_args
-    phase_ode_family()
-
-    chol_entry["small_shapes"] = phase_kernels_chol_small()
-    chol_entry["launches"] += phase_constrained_prior()
-    vs_res, vs_model, vs_args_, vs_launches = phase_varying_slopes_path()
-    chol_entry["launches"] += vs_launches
-    if profiling:
-        phase_profile(vs_res, vs_model, vs_args_, label="profile_varying_slopes")
-    del vs_res, vs_model, vs_args_
-
-    nb_res, nb_model, nb_args, nb_launches, nb_at_path = phase_censored_nb_path(x)
-    nb_entry = next(e for e in entries if e["name"] == f"glm_fused[{NB_FAMILY}]")
-    nb_entry["launches"] += nb_launches
-    nb_entry["censored_nb_path"] = {"launches": nb_launches, **nb_at_path}
-    if profiling:
-        profile_inc_beta_share(nb_res, nb_model, nb_args)
-    del nb_res, nb_model, nb_args
-    phase_univariate_sweep()
-    require(len(entries) == 8, f"{len(entries)} kernel entries")
-    require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
-    print(json.dumps({"kernels": entries}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
-    }), flush=True)
-
 
 if __name__ == "__main__":
-    main()
+    if "--worker" in sys.argv[1:]:
+        worker_main("--profile" in sys.argv[1:])
+    else:
+        main()

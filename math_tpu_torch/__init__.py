@@ -29,6 +29,8 @@ Layout:
 - ``math_tpu_torch.io``          — checkpoints and the native draw store
 - ``math_tpu_torch.diagnostics`` — ESS / R-hat
 - ``math_tpu_torch.convert``     — data and sampler state shared with ``math_tpu``
+- ``math_tpu_torch.functional``  — higher-order AD entry points on ``torch.func``;
+  ``stan`` the flat Stan-Math names; ``testing`` the finite-difference AD harness
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from math_tpu_torch.utils.batch import sum_event
+from math_tpu_torch.utils.batch import plain_tensor, sum_event
 
 __all__ = [
     "fdtype", "bcast", "as_tensors", "finish", "finish_prod", "safe", "ok_pos", "ok_prob", "ok_simplex", "ok_ordered",
@@ -58,8 +58,9 @@ _CONST_CACHE_MAX_ELEMS = 4096
 @functools.lru_cache(maxsize=256)
 def _const_tensor(raw, np_dtype, shape, dt, device):
     """The tensor of a host constant, keyed by its bytes: a numpy array that
-    was changed in place gives a new key, so the copy is never stale."""
-    return torch.as_tensor(np.frombuffer(raw, dtype=np_dtype).reshape(shape).copy(), dtype=dt, device=device)
+    was changed in place gives a new key, so the copy is never stale.  Kept
+    plain, so a copy first made under a transform serves every later call."""
+    return plain_tensor(torch.as_tensor(np.frombuffer(raw, dtype=np_dtype).reshape(shape).copy(), dtype=dt, device=device))
 
 
 def _as_constant(a, dt, device):

@@ -24,16 +24,20 @@ launches and ``PLAIN_CALLS`` calls of the plain version.
 
 Differentiation: reverse mode of ``cholesky_blocked`` and
 ``cholesky_solve_logdiag`` is the closed-form transpose of the Murray tangent
-(arXiv:1602.07527) over the saved ``(L, W_j)``; under ``create_graph=True`` the
-backward pass re-derives ``L`` from ``a`` through the public function and is
-built from differentiable operations, so any order of differentiation works.
+(arXiv:1602.07527) over the saved ``(L, W_j)``; when its result is
+differentiated again (a second order, ``ops/_forward.py``) the backward pass
+re-derives ``L`` from ``a`` through ``chol_inv_block`` (``_chol_parts_fn``) and
+is built from differentiable operations, so any order of differentiation works.
 The gradient convention matches ``torch.linalg.cholesky`` through any symmetric
 construction of ``a`` (the cotangent itself is the un-symmetrized transpose).
 
-Not carried over from the JAX module: ``_chunked_blocks`` and the merging batch
-rule (one thread block per matrix needs neither), ``_masked_diag`` (an answer
-to a TPU scatter; ``torch.diagonal`` is a view), the ``custom_transpose``
-fallback, and the forward-mode rules (reverse mode only so far).
+Not carried over from the JAX module: ``_chunked_blocks`` (one thread block
+per matrix needs no chunks), ``_masked_diag`` (an answer to a TPU scatter;
+``torch.diagonal`` is a view) and the ``custom_transpose`` fallback.  Forward
+mode: each ``autograd.Function`` has the reference's tangent rule as its
+``jvp`` (over the saved block inverses, no second factorization) and a
+``vmap`` rule that folds the vmapped axis into the kernel's batch of blocks,
+as the reference's merging batch rule does (chol_pallas.py:163-199).
 """
 
 from __future__ import annotations
@@ -42,9 +46,11 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from math_tpu_torch.config import get_config
 from math_tpu_torch.ops import _build
+from math_tpu_torch.ops._forward import differentiated_again
 
 KERNEL = "chol_inv_block"
 LAUNCHES = {KERNEL: 0}
@@ -183,23 +189,46 @@ def _psi_upper(x):
     return torch.triu(x) - 0.5 * torch.diag_embed(torch.diagonal(x, dim1=-2, dim2=-1))
 
 
+def _fold(t, d, v):
+    """``t`` with its vmapped axis ``d`` (None: broadcast to ``v``) first."""
+    return t.expand((v,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+
+
 class _CholInvBlock(torch.autograd.Function):
-    """The transpose of the linear rule ``dU = Psi(W^T dd W) U``,
-    ``dW = -W dU W`` (chol_pallas.py:255-265).  ``U`` and ``W`` are saved as
-    outputs, so a second differentiation reaches ``d`` through this node
-    again."""
+    """Reverse mode is the transpose of the linear rule ``dU = Psi(W^T dd W)
+    U``, ``dW = -W dU W`` (chol_pallas.py:255-265), forward mode (``jvp``) the
+    rule itself.  ``U`` and ``W`` are saved as outputs, so a second
+    differentiation reaches ``d`` through this node again.  ``vmap`` folds
+    the vmapped axis into the batch of blocks: one launch (the reference's
+    ``_chol_inv_batcher``, chol_pallas.py:163-199)."""
 
     @staticmethod
-    def forward(ctx, d):
-        u, w = chol_inv_block_parts(d)
-        ctx.save_for_backward(u, w)
-        return u, w
+    def forward(d):
+        return chol_inv_block_parts(d)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*output)
+        ctx.save_for_forward(*output)
 
     @staticmethod
     def backward(ctx, ubar, wbar):
         u, w = ctx.saved_tensors
         ubar = ubar - _T(w) @ wbar @ _T(w)
         return w @ _psi_upper(ubar @ _T(u)) @ _T(w)
+
+    @staticmethod
+    def jvp(ctx, dd):
+        u, w = ctx.saved_tensors
+        du = _psi_upper(_T(w) @ dd @ w) @ u
+        return du, -w @ du @ w
+
+    @staticmethod
+    def vmap(info, in_dims, d):
+        d = _fold(d, in_dims[0], info.batch_size)
+        shape = d.shape
+        u, w = _CholInvBlock.apply(d.reshape((-1,) + shape[-2:]).contiguous())
+        return (u.reshape(shape), w.reshape(shape)), (0, 0)
 
 
 def chol_inv_block(d):
@@ -279,7 +308,8 @@ def _chol_blocked_impl(flat, B):
 
 def _lower_solve_blocks(L, Ws, b, B):
     """y with L y = b by block forward substitution; L_jj^-1 = W_j^T.
-    ``b`` is (C, N, M)."""
+    ``b`` is (C, N, M).  Each block is written into the rows of one
+    allocation: the forward's path (plain tensors)."""
     y = torch.empty(b.shape, dtype=b.dtype, device=b.device)
     for j in range(len(Ws)):
         s = j * B
@@ -290,17 +320,29 @@ def _lower_solve_blocks(L, Ws, b, B):
     return y
 
 
+def _in_transform(*ts):
+    """Whether a tensor is wrapped by a ``torch.func`` transform: ``vmap``
+    has no rule for ``out=`` nor for an in-place write of a batched value
+    into a plain tensor, so the backward's first-order path writes out of
+    place there (one more copy of each block) and in place otherwise."""
+    return any(t is not None and is_functorch_wrapped_tensor(t) for t in ts)
+
+
 def _upper_solve_blocks(L, Ws, b, B):
     """y with L^T y = b by block back substitution; (L^T)_jj^-1 = W_j.
     ``b`` is (C, N, M)."""
-    y = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+    wrapped = _in_transform(L, b, *Ws)
+    y = torch.empty_like(b) if wrapped else torch.empty(b.shape, dtype=b.dtype, device=b.device)
     N = L.shape[-1]
     for j in reversed(range(len(Ws))):
         s = j * B
         rhs = b[:, s : s + B, :]
         if s + B < N:
             rhs = torch.baddbmm(rhs, _T(L[:, s + B :, s : s + B]), y[:, s + B :, :], alpha=-1.0)
-        torch.bmm(Ws[j], rhs, out=y[:, s : s + B, :])
+        if wrapped:
+            y[:, s : s + B, :] = torch.bmm(Ws[j], rhs)
+        else:
+            torch.bmm(Ws[j], rhs, out=y[:, s : s + B, :])
     return y
 
 
@@ -327,11 +369,13 @@ def _csl_tan_transpose(L, Ws, y, ybar, sbar, B, need_b=True):
         b_bar = L^-T y_bar
         A_bar = L^-T (-Phi(y_bar y^T) + 1/2 s_bar I) L^-1
 
-    Returns ``(A_bar, b_bar or None)``.  Runs without autograd (the first-order
-    backward pass), so the middle factor is assembled in place."""
+    Returns ``(A_bar, b_bar or None)``: the first-order backward pass."""
     bbar = _upper_solve_blocks(L, Ws, ybar, B) if need_b else None
     C = torch.tril(torch.bmm(-ybar, _T(y)))
-    C.diagonal(dim1=-2, dim2=-1).mul_(0.5).add_(0.5 * sbar[:, None])
+    if _in_transform(C, sbar):
+        C = C + torch.diag_embed(0.5 * (sbar[:, None] - torch.diagonal(C, dim1=-2, dim2=-1)))
+    else:
+        C.diagonal(dim1=-2, dim2=-1).mul_(0.5).add_(0.5 * sbar[:, None])
     return _two_sided_upper_solve(L, Ws, C, B), bbar
 
 
@@ -347,31 +391,131 @@ def _tri_adjoint(Ld, C):
 # ---------------------------------------------------------------------------
 
 
+def _chol_parts_fn(a, block_size):
+    """``(L, [W_j])`` of ``_chol_blocked_impl`` (the padded flat factor and
+    the block inverses) composed of ``chol_inv_block`` and out-of-place
+    products, so every transform differentiates them through
+    ``_CholInvBlock``'s rules: one launch a block, as the forward.  The path
+    of a rule whose result is differentiated again (``ops/_forward.py``)."""
+    n = a.shape[-1]
+    B, npad = _block_grid(n, block_size)
+    flat, _ = _flatten_pad(a, n, npad)
+    cols, Ws = [], []  # block column j: (C, N - jB, B), its rows from jB down
+    for j in range(flat.shape[-1] // B):
+        s = j * B
+        panel = flat[:, s:, s : s + B]
+        if s:
+            left = torch.cat([c[:, s - i * B :, :] for i, c in enumerate(cols)], dim=-1)  # L[s:, :s]
+            panel = panel - left @ _T(left[:, :B, :])
+        u, w = chol_inv_block(panel[:, :B, :])
+        Ws.append(w)
+        cols.append(torch.cat([_T(u), panel[:, B:, :] @ w], dim=-2))
+    return torch.cat([F.pad(c, (0, 0, i * B, 0)) for i, c in enumerate(cols)], dim=-1), Ws
+
+
+def _cholesky_fn(a, block_size):
+    """The blocked factor of ``a (..., n, n)`` from ``_chol_parts_fn``."""
+    return _unflatten_unpad(_chol_parts_fn(a, block_size)[0], a.shape[:-2], a.shape[-1])
+
+
+def _lower_solve_fn(L, Ws, b, B):
+    """``_lower_solve_blocks`` out of place (no ``out=``, no preallocated
+    rows), so that ``vmap`` and every transform can go through it: the forward
+    mode's solves, where a tangent carries a vmapped axis."""
+    ys = []
+    for j, w in enumerate(Ws):
+        s = j * B
+        rhs = b[..., s : s + B, :]
+        if s:
+            rhs = rhs - L[..., s : s + B, :s] @ torch.cat(ys, dim=-2)
+        ys.append(_T(w) @ rhs)
+    return torch.cat(ys, dim=-2)
+
+
+def _two_sided_lower_solve(L, Ws, da, B):
+    """``M = L^-1 dA L^-T`` by two block forward substitutions."""
+    return _T(_lower_solve_fn(L, Ws, _T(_lower_solve_fn(L, Ws, da, B)), B))
+
+
+def _flat_rows(t, v, p):
+    """A flat ``(v * P, ...)`` tensor of the folded call as ``(v, P, ...)``."""
+    return t.reshape((v, p) + tuple(t.shape[1:]))
+
+
 class _CholeskyBlocked(torch.autograd.Function):
+    """``(L, L_flat, *W_j)``: the factor and, not differentiable, the padded
+    flat factor and the block inverses the forward computed.
+
+    - Reverse mode: the closed-form transpose ``_chb_tan_transpose`` over the
+      saved ``(L, W_j)``; under a second order, differentiable triangular
+      solves (any order).
+    - Forward mode: ``dL = L Phi(L^-1 dA L^-T)`` (``_chb_tan_fun``,
+      chol_pallas.py:394-407), both solves as block substitutions over the
+      saved ``W_j`` (no second factorization).
+    - ``vmap``: the vmapped axis joins the leading (chain) axes of one call."""
+
     @staticmethod
-    def forward(ctx, a, block_size):
+    def forward(a, block_size):
         n = a.shape[-1]
         B, npad = _block_grid(n, block_size)
         flat, batch_shape = _flatten_pad(a, n, npad)
         L, Ws = _chol_blocked_impl(flat, B)
-        ctx.save_for_backward(a, L, *Ws)
-        ctx.grid = (n, B, npad, batch_shape, block_size)
-        return _unflatten_unpad(L, batch_shape, n).contiguous()
+        return (_unflatten_unpad(L, batch_shape, n).contiguous(), L, *Ws)
 
     @staticmethod
-    def backward(ctx, lbar):
+    def setup_context(ctx, inputs, output):
+        a, block_size = inputs
+        n = a.shape[-1]
+        B, npad = _block_grid(n, block_size)
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, *output[1:])
+        ctx.save_for_forward(a, *output[1:])
+        ctx.grid = (n, B, npad, a.shape[:-2], block_size)
+
+    @staticmethod
+    def backward(ctx, lbar, *_):
         a, L, *Ws = ctx.saved_tensors
         n, B, npad, batch_shape, block_size = ctx.grid
-        if torch.is_grad_enabled():  # create_graph=True: the result is differentiated again
-            Ld = cholesky_blocked(a, block_size)
+        if lbar is None:
+            return None, None
+        if differentiated_again(a):  # a second order: differentiable triangular solves
+            Ld = _cholesky_fn(a, block_size)
             return _tri_adjoint(Ld, _phi(_T(Ld) @ lbar)), None
         abar = _chb_tan_transpose(L, Ws, _flatten_pad_zero(lbar, npad), B)
         return _unflatten_unpad(abar, batch_shape, n), None
 
+    @staticmethod
+    def jvp(ctx, da, _):
+        a, L, *Ws = ctx.saved_tensors
+        n, B, npad, batch_shape, block_size = ctx.grid
+        if differentiated_again(a):  # the coefficients must carry their derivative in a
+            L, Ws = _chol_parts_fn(a, block_size)
+        dL = L @ _phi(_two_sided_lower_solve(L, Ws, _flatten_pad_zero(da, npad), B))
+        return (_unflatten_unpad(dL, batch_shape, n),) + (None,) * (1 + len(Ws))
+
+    @staticmethod
+    def vmap(info, in_dims, a, block_size):
+        v = info.batch_size
+        a = _fold(a, in_dims[0], v)
+        outs = _CholeskyBlocked.apply(a, block_size)
+        p = outs[1].shape[0] // v
+        return (outs[0],) + tuple(_flat_rows(t, v, p) for t in outs[1:]), (0,) * len(outs)
+
 
 class _CholeskySolveLogdiag(torch.autograd.Function):
+    """``(y, s, L_flat, y_flat, *W_j)`` with ``y = L^-1 b``, ``s = sum log
+    L_ii``; the last ones (not differentiable) are what the rules below read.
+
+    - Reverse mode: ``_csl_tan_transpose`` over the saved ``(L, W_j, y)``;
+      under a second order, differentiable triangular solves.
+    - Forward mode: with ``M = L^-1 dA L^-T``, ``dy = L^-1 db - Phi(M) y`` and
+      ``ds = tr(M) / 2`` (``_csl_tan_fun``, chol_pallas.py:483), the solves
+      over the saved ``W_j``.
+    - ``vmap``: the vmapped axis joins the leading axes of one call."""
+
     @staticmethod
-    def forward(ctx, a, b, block_size):
+    def forward(a, b, block_size):
         n = a.shape[-1]
         B, npad = _block_grid(n, block_size)
         flat, batch_shape = _flatten_pad(a, n, npad)
@@ -379,18 +523,33 @@ class _CholeskySolveLogdiag(torch.autograd.Function):
         y = _lower_solve_blocks(L, Ws, _flatten_pad_zero(b, npad, cols_only=True), B)
         # the padded tail has unit diagonal: its logarithm adds exactly 0
         s = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
-        ctx.save_for_backward(a, b, L, y, *Ws)
-        ctx.grid = (n, B, npad, batch_shape, block_size)
         y_out = y.reshape(tuple(batch_shape) + y.shape[-2:])[..., :n, :].contiguous()
-        return y_out, s.reshape(tuple(batch_shape))
+        return (y_out, s.reshape(tuple(batch_shape)), L, y, *Ws)
 
     @staticmethod
-    def backward(ctx, ybar, sbar):
+    def setup_context(ctx, inputs, output):
+        a, b, block_size = inputs
+        n = a.shape[-1]
+        B, npad = _block_grid(n, block_size)
+        ctx.mark_non_differentiable(*output[2:])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, b, *output[2:])
+        ctx.save_for_forward(a, b, *output[2:])
+        ctx.grid = (n, B, npad, a.shape[:-2], block_size)
+
+    @staticmethod
+    def backward(ctx, ybar, sbar, *_):
         a, b, L, y, *Ws = ctx.saved_tensors
         n, B, npad, batch_shape, block_size = ctx.grid
+        if ybar is None and sbar is None:
+            return None, None, None
+        if ybar is None:
+            ybar = torch.zeros(tuple(batch_shape) + (n, b.shape[-1]), dtype=a.dtype, device=a.device)
+        if sbar is None:
+            sbar = torch.zeros(tuple(batch_shape), dtype=a.dtype, device=a.device)
         need_b = ctx.needs_input_grad[1]
-        if torch.is_grad_enabled():  # create_graph=True: the result is differentiated again
-            Ld = cholesky_blocked(a, block_size)
+        if differentiated_again(a, b):  # a second order: differentiable triangular solves
+            Ld = _cholesky_fn(a, block_size)
             yd = torch.linalg.solve_triangular(Ld, b, upper=False)
             eye = torch.eye(n, dtype=a.dtype, device=a.device)
             abar = _tri_adjoint(Ld, -_phi(ybar @ _T(yd)) + 0.5 * sbar[..., None, None] * eye)
@@ -403,6 +562,33 @@ class _CholeskySolveLogdiag(torch.autograd.Function):
             bbar = bbar.reshape(tuple(batch_shape) + bbar.shape[-2:])[..., :n, :]
         return _unflatten_unpad(abar, batch_shape, n), bbar, None
 
+    @staticmethod
+    def jvp(ctx, da, db, _):
+        a, b, L, y, *Ws = ctx.saved_tensors
+        n, B, npad, batch_shape, block_size = ctx.grid
+        if differentiated_again(a, b):  # the coefficients must carry their derivative in a, b
+            L, Ws = _chol_parts_fn(a, block_size)
+            y = _lower_solve_fn(L, Ws, _flatten_pad_zero(b, npad, cols_only=True), B)
+        dy = ds = None
+        if db is not None:
+            dy = _lower_solve_fn(L, Ws, _flatten_pad_zero(db, npad, cols_only=True), B)
+        if da is not None:
+            M = _two_sided_lower_solve(L, Ws, _flatten_pad_zero(da, npad), B)
+            dy = -_phi(M) @ y if dy is None else dy - _phi(M) @ y
+            ds = 0.5 * torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+        else:
+            ds = torch.zeros(L.shape[:1], dtype=L.dtype, device=L.device)
+        dy = dy.reshape(tuple(batch_shape) + dy.shape[-2:])[..., :n, :]
+        return (dy, ds.reshape(tuple(batch_shape))) + (None,) * (2 + len(Ws))
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, block_size):
+        v = info.batch_size
+        a, b = _fold(a, in_dims[0], v), _fold(b, in_dims[1], v)
+        outs = _CholeskySolveLogdiag.apply(a, b, block_size)
+        p = outs[2].shape[0] // v
+        return outs[:2] + tuple(_flat_rows(t, v, p) for t in outs[2:]), (0,) * len(outs)
+
 
 def _block_size(block_size):
     return get_config().cholesky_block_size if block_size is None else int(block_size)
@@ -414,7 +600,7 @@ def cholesky_blocked(a, block_size=None):
     each kernel launch.  ``block_size`` defaults to
     ``get_config().cholesky_block_size``.  A matrix that is not positive
     definite gives NaN, never finite garbage.  ref: chol_pallas.py:570."""
-    return _CholeskyBlocked.apply(a, _block_size(block_size))
+    return _CholeskyBlocked.apply(a, _block_size(block_size))[0]
 
 
 def cholesky_solve_logdiag(a, b, block_size=None):
@@ -430,5 +616,5 @@ def cholesky_solve_logdiag(a, b, block_size=None):
     if vec:
         b = b[..., None]
     b = b.expand(tuple(a.shape[:-2]) + tuple(b.shape[-2:]))
-    y, s = _CholeskySolveLogdiag.apply(a, b, _block_size(block_size))
+    y, s = _CholeskySolveLogdiag.apply(a, b, _block_size(block_size))[:2]
     return (y[..., 0] if vec else y), s

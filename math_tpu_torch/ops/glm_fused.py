@@ -47,10 +47,15 @@ plain version, ``LAYOUT_COPIES`` the dispatcher calls that had to copy ``x``
 or ``y``, so a run can show which one it went through.
 
 Differentiation (ref: pallas_glm.py:219-237): at first order each
-``autograd.Function`` reads the gradients off the partials its forward pass
-saved and launches nothing.  Under ``create_graph=True`` its backward takes the
-differentiable plain version instead, as the JAX package's second level
-differentiates its XLA formulation, so Hessians and higher orders work.
+``autograd.Function`` reads the gradients (reverse mode) or the tangent
+(forward mode, ``jvp``) off the partials its forward launch returned and
+launches nothing more; that holds under a first-order ``torch.func``
+transform too.  Under a second order (``ops/_forward.py``: ``create_graph=True``
+over inputs that require grad, ``torch.func.hessian``, ``grad`` of ``grad``)
+its backward takes the differentiable plain version instead, as the JAX package's second level differentiates its XLA
+formulation, so Hessians (forward over reverse too) and higher orders work.
+Each has a ``vmap`` rule that folds a vmapped parameter axis into the chain
+lanes of one launch.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ import ctypes
 import torch
 
 from math_tpu_torch.ops import _build
+from math_tpu_torch.ops._forward import differentiated_again
 from math_tpu_torch.special import log1m_exp
 
 FAMILIES = ("bernoulli_logit", "poisson_log", "normal_id", "neg_binomial_2_log")
@@ -378,30 +384,98 @@ def _dy_rows(family, eta, thetap, y, extra):
     return eta - torch.logaddexp(eta, torch.log(extra)[None, :])
 
 
+def _data_tangent(family, y, x, alpha, beta, extra, ty, tx):
+    """Tangent of ``logp`` from perturbed data ``(y, x)`` by one eta recompute
+    (ref: ``_data_tangent``, pallas_glm.py:277-291); its transpose is the data
+    cotangent of ``GlmFused.backward``."""
+    eta = x @ beta + alpha[None, :]
+    e2 = extra[None, :] if HAS_EXTRA[family] else None
+    _, thetap, _ = _core(family, eta, y[:, None], e2)
+    tan = None
+    if tx is not None:
+        tan = (thetap * (tx @ beta)).sum(0)
+    if ty is not None:
+        t = ty @ _dy_rows(family, eta, thetap, y, extra)
+        tan = t if tan is None else tan + t
+    return tan
+
+
+def _plus(tan, t):
+    return t if tan is None else tan + t
+
+
+def _lanes(t, d, v, lane_dim):
+    """``t`` with the vmapped axis ``d`` (None: not batched, broadcast to ``v``)
+    folded into its lane axis ``lane_dim``: ``(..., C, ...)`` -> ``(..., v*C, ...)``."""
+    t = t.expand((v,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+    t = t.movedim(0, lane_dim)
+    shape = tuple(t.shape)
+    return t.reshape(shape[:lane_dim] + (-1,) + shape[lane_dim + 2 :]).contiguous()
+
+
+def _unfold(t, v, lane_dim):
+    """The inverse of ``_lanes``: ``(..., v*C, ...)`` -> ``(..., v, C, ...)``;
+    the vmapped axis sits at ``lane_dim``."""
+    shape = tuple(t.shape)
+    return t.reshape(shape[:lane_dim] + (v, -1) + shape[lane_dim + 1 :])
+
+
+def _vmap_over_data(apply, info, in_dims, args):
+    """A vmapped ``x`` or ``y``: one call (one launch) per batch element,
+    stacked.  ``args`` are the Function's tensor operands, ``in_dims`` theirs."""
+    outs = []
+    for i in range(info.batch_size):
+        outs.append(apply(*[t if d is None or t is None else t.select(d, i) for t, d in zip(args, in_dims)]))
+    return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+
+
 class GlmFused(torch.autograd.Function):
-    """``logp (C,)`` of one family's eta-part; first-order gradients for
-    ``alpha``, ``beta``, ``extra`` are read off the partials the forward pass
-    saved (the transpose of the linear JVP rule, pallas_glm.py:343-358).  The
-    data-side cotangents for ``x`` and ``y`` are computed in plain PyTorch,
-    and only when asked for.  There is no backward kernel, as in the JAX
-    package.  Under ``create_graph=True`` the partials come from the
-    differentiable plain version (pallas_glm.py:305-311), so the result can be
-    differentiated again.  The operands must be contiguous (the dispatchers
-    lay them out before the call, where autograd sees the copy).
-    """
+    """``(logp (C,), ga, gb, ge)`` of one family's eta-part (``ge`` for the
+    families with an extra parameter); the partials are outputs that are not
+    differentiable, returned so that the rules below can read them.
+
+    - First-order gradients for ``alpha``, ``beta``, ``extra`` are read off
+      the partials (the transpose of the linear JVP rule, pallas_glm.py:343-358);
+      the data-side cotangents for ``x`` and ``y`` are computed in plain
+      PyTorch, and only when asked for.  There is no backward kernel, as in
+      the JAX package.  Under a second order (``ops/_forward.py``) the
+      partials come from the differentiable plain version (pallas_glm.py:305-311), so the result can
+      be differentiated again.
+    - Forward mode (``jvp``): the tangent ``ga ta + sum gb tb (+ ge te)`` is
+      linear in the input tangent with coefficients from the forward launch's
+      partials (level 0, ``fused_jvp`` pallas_glm.py:339-381), plus the data
+      tangent by one eta recompute.
+    - ``vmap`` folds a vmapped ``alpha`` / ``beta`` / ``extra`` into the
+      chain lanes: one launch for every batch element (``_chol_inv_batcher``'s
+      idea, chol_pallas.py:163-199); a vmapped ``x`` or ``y`` runs one launch
+      per element.
+
+    The operands must be contiguous (the dispatchers lay them out before the
+    call, where autograd sees the copy)."""
 
     @staticmethod
-    def forward(ctx, family, y, x, alpha, beta, extra):
+    def forward(family, y, x, alpha, beta, extra):
         logp, ga, gb, ge = glm_fused_parts(family, y, x, alpha, beta, extra)
+        return (logp, ga, gb) if ge is None else (logp, ga, gb, ge)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        family, y, x, alpha, beta, extra = inputs
+        ga, gb = output[1], output[2]
+        ge = output[3] if len(output) == 4 else None
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.set_materialize_grads(False)
         ctx.family = family
         ctx.save_for_backward(y, x, alpha, beta, extra, ga, gb, ge)
-        return logp
+        ctx.save_for_forward(y, x, alpha, beta, extra, ga, gb, ge)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         y, x, alpha, beta, extra, ga, gb, ge = ctx.saved_tensors
         family = ctx.family
-        if torch.is_grad_enabled():  # create_graph=True: the result is differentiated again
+        if g is None:
+            return (None,) * 6
+        if differentiated_again(y, x, alpha, beta, extra):  # a second order: the partials must carry their derivative
             _, ga, gb, ge = glm_fused_parts_reference(family, y, x, alpha, beta, extra)
         need_y, need_x = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
         gy = gx = None
@@ -417,6 +491,35 @@ class GlmFused(torch.autograd.Function):
         g_beta = g[None, :] * gb if ctx.needs_input_grad[4] else None
         g_extra = g * ge if (ge is not None and ctx.needs_input_grad[5]) else None
         return None, gy, gx, g_alpha, g_beta, g_extra
+
+    @staticmethod
+    def jvp(ctx, _, ty, tx, ta, tb, te):
+        y, x, alpha, beta, extra, ga, gb, ge = ctx.saved_tensors
+        if differentiated_again(y, x, alpha, beta, extra):
+            _, ga, gb, ge = glm_fused_parts_reference(ctx.family, y, x, alpha, beta, extra)
+        tan = None
+        if ta is not None:
+            tan = ga * ta
+        if tb is not None:
+            tan = _plus(tan, (gb * tb).sum(0))
+        if te is not None and ge is not None:
+            tan = _plus(tan, ge * te)
+        if tx is not None or ty is not None:
+            tan = _plus(tan, _data_tangent(ctx.family, y, x, alpha, beta, extra, ty, tx))
+        if tan is None:
+            tan = torch.zeros_like(ga)
+        return (tan,) + (None,) * (3 if ge is not None else 2)
+
+    @staticmethod
+    def vmap(info, in_dims, family, y, x, alpha, beta, extra):
+        _, yd, xd, ad, bd, ed = in_dims
+        if yd is not None or xd is not None:
+            return _vmap_over_data(lambda *a: GlmFused.apply(family, *a), info, in_dims[1:], (y, x, alpha, beta, extra))
+        v = info.batch_size
+        extra = None if extra is None else _lanes(extra, ed, v, 0)
+        outs = GlmFused.apply(family, y, x, _lanes(alpha, ad, v, 0), _lanes(beta, bd, v, 1), extra)
+        lane_dims = (0, 0, 1, 0)[: len(outs)]
+        return tuple(_unfold(o, v, d) for o, d in zip(outs, lane_dims)), lane_dims
 
 
 def _laid_out(t):
@@ -467,7 +570,7 @@ def _fused(family, y, x, alpha, beta, extra=None):
     x, y = _for_kernel(family, x, y)
     return GlmFused.apply(
         family, y, x, alpha.contiguous(), beta.contiguous(), None if extra is None else extra.contiguous()
-    )
+    )[0]
 
 
 # ---------------------------------------------------------------------------
@@ -607,23 +710,33 @@ def ordered_logistic_glm_parts(y, x, beta, cuts):
 
 
 class OrderedGlmFused(torch.autograd.Function):
-    """``logp (C,)`` of the ordered-logistic GLM; first-order gradients for
-    ``beta`` and ``cuts`` are read off the saved partials (ref:
-    pallas_glm.py:621-634), the ``x`` cotangent is computed in plain PyTorch
-    only when asked for (``_ordered_eta_partials``).  Under
-    ``create_graph=True`` the partials come from the differentiable plain
-    version (pallas_glm.py:598-607)."""
+    """``(logp (C,), gbeta, gcuts)`` of the ordered-logistic GLM, the partials
+    not differentiable.  First-order gradients for ``beta`` and ``cuts`` are
+    read off the partials (ref: pallas_glm.py:621-634), the ``x`` cotangent is
+    computed in plain PyTorch only when asked for (``_ordered_eta_partials``).
+    Under a second order the partials come from the differentiable plain
+    version (pallas_glm.py:598-607).  ``jvp``: ``sum gbeta tb + sum gcuts tc``
+    plus the ``x`` tangent (``_ordered_fused_jvp``, pallas_glm.py:610-637);
+    ``vmap`` folds a vmapped ``beta`` / ``cuts`` into the chain lanes."""
 
     @staticmethod
-    def forward(ctx, y, x, beta, cuts):
-        logp, gb, gc = ordered_logistic_glm_parts(y, x, beta, cuts)
-        ctx.save_for_backward(y, x, beta, cuts, gb, gc)
-        return logp
+    def forward(y, x, beta, cuts):
+        return ordered_logistic_glm_parts(y, x, beta, cuts)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        y, x, beta, cuts = inputs
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(y, x, beta, cuts, *output[1:])
+        ctx.save_for_forward(y, x, beta, cuts, *output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *_):
         y, x, beta, cuts, gb, gc = ctx.saved_tensors
-        if torch.is_grad_enabled():  # create_graph=True: the result is differentiated again
+        if g is None:
+            return None, None, None, None
+        if differentiated_again(y, x, beta, cuts):  # a second order: the partials must carry their derivative
             _, gb, gc = ordered_logistic_glm_parts_reference(y, x, beta, cuts)
         gx = None
         if ctx.needs_input_grad[1]:
@@ -632,6 +745,31 @@ class OrderedGlmFused(torch.autograd.Function):
         g_cuts = g[None, :] * gc if ctx.needs_input_grad[3] else None
         return None, gx, g_beta, g_cuts
 
+    @staticmethod
+    def jvp(ctx, _, tx, tb, tc):
+        y, x, beta, cuts, gb, gc = ctx.saved_tensors
+        if differentiated_again(x, beta, cuts):
+            _, gb, gc = ordered_logistic_glm_parts_reference(y, x, beta, cuts)
+        tan = None
+        if tb is not None:
+            tan = (gb * tb).sum(0)
+        if tc is not None:
+            tan = _plus(tan, (gc * tc).sum(0))
+        if tx is not None:
+            tan = _plus(tan, (_ordered_eta_partials(y, x, beta, cuts) * (tx @ beta)).sum(0))
+        if tan is None:
+            tan = torch.zeros(gb.shape[1:], dtype=gb.dtype, device=gb.device)
+        return tan, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, y, x, beta, cuts):
+        yd, xd, bd, cd = in_dims
+        if yd is not None or xd is not None:
+            return _vmap_over_data(OrderedGlmFused.apply, info, in_dims, (y, x, beta, cuts))
+        v = info.batch_size
+        outs = OrderedGlmFused.apply(y, x, _lanes(beta, bd, v, 1), _lanes(cuts, cd, v, 1))
+        return (_unfold(outs[0], v, 0), _unfold(outs[1], v, 1), _unfold(outs[2], v, 1)), (0, 1, 1)
+
 
 def ordered_logistic_glm_lpmf_chains(y, x, beta, cuts):
     """y (N,) int 1..K, x (N, D), beta (D, C), cuts (K-1, C) -> (C,).
@@ -639,7 +777,7 @@ def ordered_logistic_glm_lpmf_chains(y, x, beta, cuts):
     dists.ordered_logistic_glm_lpmf(..., propto=True) per chain, with the
     kernel's -/+1e4 boundary cuts.  ref: pallas_glm.py:868-882."""
     x, y = _for_kernel(ORDERED, x, y)
-    return OrderedGlmFused.apply(y, x, beta.contiguous(), cuts.contiguous())
+    return OrderedGlmFused.apply(y, x, beta.contiguous(), cuts.contiguous())[0]
 
 
 # ---------------------------------------------------------------------------
@@ -824,22 +962,33 @@ def categorical_logit_glm_parts(y, x, alpha, beta):
 
 
 class CategoricalGlmFused(torch.autograd.Function):
-    """``logp (C,)`` of the categorical-logit GLM; first-order gradients for
-    ``alpha`` and ``beta`` are read off the saved partials (ref:
-    pallas_glm.py:792-805), the ``x`` cotangent is computed in plain PyTorch
-    only when asked for.  Under ``create_graph=True`` the partials come from
-    the differentiable plain version (pallas_glm.py:769-778)."""
+    """``(logp (C,), galpha, gbeta)`` of the categorical-logit GLM, the
+    partials not differentiable.  First-order gradients for ``alpha`` and
+    ``beta`` are read off the partials (ref: pallas_glm.py:792-805), the ``x``
+    cotangent is computed in plain PyTorch only when asked for.  Under a
+    second order the partials come from the differentiable plain version
+    (pallas_glm.py:769-778).  ``jvp``: ``sum galpha ta + sum gbeta tb`` plus
+    the ``x`` tangent (``_categorical_fused_jvp``, pallas_glm.py:781-808);
+    ``vmap`` folds a vmapped ``alpha`` / ``beta`` into the chains."""
 
     @staticmethod
-    def forward(ctx, y, x, alpha, beta):
-        logp, ga, gb = categorical_logit_glm_parts(y, x, alpha, beta)
-        ctx.save_for_backward(y, x, alpha, beta, ga, gb)
-        return logp
+    def forward(y, x, alpha, beta):
+        return categorical_logit_glm_parts(y, x, alpha, beta)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        y, x, alpha, beta = inputs
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(y, x, alpha, beta, *output[1:])
+        ctx.save_for_forward(y, x, alpha, beta, *output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *_):
         y, x, alpha, beta, ga, gb = ctx.saved_tensors
-        if torch.is_grad_enabled():  # create_graph=True: the result is differentiated again
+        if g is None:
+            return None, None, None, None
+        if differentiated_again(y, x, alpha, beta):  # a second order: the partials must carry their derivative
             _, ga, gb = categorical_logit_glm_parts_reference(y, x, alpha, beta)
         gx = None
         if ctx.needs_input_grad[1]:
@@ -849,10 +998,36 @@ class CategoricalGlmFused(torch.autograd.Function):
         g_beta = g[:, None, None] * gb if ctx.needs_input_grad[3] else None
         return None, gx, g_alpha, g_beta
 
+    @staticmethod
+    def jvp(ctx, _, tx, ta, tb):
+        y, x, alpha, beta, ga, gb = ctx.saved_tensors
+        if differentiated_again(x, alpha, beta):
+            _, ga, gb = categorical_logit_glm_parts_reference(y, x, alpha, beta)
+        tan = None
+        if ta is not None:
+            tan = (ga * ta).sum(-1)
+        if tb is not None:
+            tan = _plus(tan, (gb * tb).sum((-2, -1)))
+        if tx is not None:
+            _, _, thetap = _categorical_thetap(y, x, alpha, beta)
+            tan = _plus(tan, torch.einsum("cnk,nd,cdk->c", thetap, tx, beta))
+        if tan is None:
+            tan = torch.zeros(ga.shape[:1], dtype=ga.dtype, device=ga.device)
+        return tan, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, y, x, alpha, beta):
+        yd, xd, ad, bd = in_dims
+        if yd is not None or xd is not None:
+            return _vmap_over_data(CategoricalGlmFused.apply, info, in_dims, (y, x, alpha, beta))
+        v = info.batch_size
+        outs = CategoricalGlmFused.apply(y, x, _lanes(alpha, ad, v, 0), _lanes(beta, bd, v, 0))
+        return tuple(_unfold(o, v, 0) for o in outs), (0, 0, 0)
+
 
 def categorical_logit_glm_lpmf_chains(y, x, alpha, beta):
     """y (N,) int 1..K, x (N, D), alpha (C, K), beta (C, D, K) -> (C,).
     Mirrors dists.categorical_logit_glm_lpmf(..., propto=True) per chain.
     ref: pallas_glm.py:885-905."""
     x, y = _for_kernel(CATEGORICAL, x, y)
-    return CategoricalGlmFused.apply(y, x, alpha.contiguous(), beta.contiguous())
+    return CategoricalGlmFused.apply(y, x, alpha.contiguous(), beta.contiguous())[0]

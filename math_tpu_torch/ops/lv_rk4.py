@@ -31,6 +31,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from math_tpu_torch.ops import _build, ode
+from math_tpu_torch.utils.batch import plain_tensor
 
 KERNEL = "lv_rk4"
 FORWARD, ADJOINT = "lv_rk4_forward", "lv_rk4_adjoint"
@@ -147,7 +148,7 @@ def _library():
 
 @functools.lru_cache(maxsize=64)
 def _device_times_cached(raw, dtype, device):
-    return torch.tensor(np.frombuffer(raw, dtype=ode.np_dtype(dtype)).copy(), device=device)
+    return plain_tensor(torch.tensor(np.frombuffer(raw, dtype=ode.np_dtype(dtype)).copy(), device=device))
 
 
 def _device_times(t0, ts, dtype, device):

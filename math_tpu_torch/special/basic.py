@@ -244,50 +244,101 @@ def _dgamma_dz(a, z):
     return torch.exp(-z + (a - 1.0) * torch.log(z) - torch.lgamma(a))
 
 
+def _elementwise_vmap(fn, info, in_dims, *args):
+    """The ``vmap`` rule of an elementwise ``autograd.Function`` whose forward
+    runs a convergence loop (a host check that a batched tensor cannot take):
+    the vmapped axis leads every operand, one call for the batch."""
+    v = info.batch_size
+    args = [t.expand((v,) + tuple(t.shape)) if d is None else t.movedim(d, 0) for t, d in zip(args, in_dims)]
+    return fn(*torch.broadcast_tensors(*args)), 0
+
+
 class _GammaP(torch.autograd.Function):
     """P(a, z): the value XLA's ``igamma`` computes (``hyper.igamma_values``),
     the partials from ``grad_reg_lower_inc_gamma`` (itself differentiable when
     a graph is built: second order, the reference's fvar<fvar<var>>
-    instantiation)."""
+    instantiation).  ``jvp``: the same partials times the tangents, from the
+    saved inputs, so a reverse pass over it differentiates them again."""
 
     @staticmethod
-    def forward(ctx, a, z):
+    def forward(a, z):
         from math_tpu_torch.special.hyper import igamma_values
 
-        ctx.save_for_backward(a, z)
         return igamma_values(a, z)
 
     @staticmethod
-    def backward(ctx, grad):
-        from math_tpu_torch.special.hyper import grad_reg_lower_inc_gamma
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
 
+    @staticmethod
+    def backward(ctx, grad):
         a, z = ctx.saved_tensors
         need_a, need_z = ctx.needs_input_grad
-        da = grad * grad_reg_lower_inc_gamma(a, z) if need_a else None
-        dz = grad * _dgamma_dz(a, z) if need_z else None
-        return da, dz
+        return _gamma_partials(a, z, grad, need_a, need_z, 1.0)
+
+    @staticmethod
+    def jvp(ctx, ta, tz):
+        a, z = ctx.saved_tensors
+        return _gamma_tangent(a, z, ta, tz, 1.0)
+
+    @staticmethod
+    def vmap(info, in_dims, a, z):
+        return _elementwise_vmap(_GammaP.apply, info, in_dims, a, z)
 
 
 class _GammaQ(torch.autograd.Function):
     """Q(a, z): XLA's ``igammac`` (``hyper.igamma_values``), partials from
-    ``grad_reg_inc_gamma``."""
+    ``grad_reg_inc_gamma``; ``jvp`` and ``vmap`` as ``_GammaP``'s."""
 
     @staticmethod
-    def forward(ctx, a, z):
+    def forward(a, z):
         from math_tpu_torch.special.hyper import igamma_values
 
-        ctx.save_for_backward(a, z)
         return igamma_values(a, z, upper=True)
 
     @staticmethod
-    def backward(ctx, grad):
-        from math_tpu_torch.special.hyper import grad_reg_inc_gamma
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
 
+    @staticmethod
+    def backward(ctx, grad):
         a, z = ctx.saved_tensors
         need_a, need_z = ctx.needs_input_grad
-        da = grad * grad_reg_inc_gamma(a, z) if need_a else None
-        dz = -grad * _dgamma_dz(a, z) if need_z else None
-        return da, dz
+        return _gamma_partials(a, z, grad, need_a, need_z, -1.0)
+
+    @staticmethod
+    def jvp(ctx, ta, tz):
+        a, z = ctx.saved_tensors
+        return _gamma_tangent(a, z, ta, tz, -1.0)
+
+    @staticmethod
+    def vmap(info, in_dims, a, z):
+        return _elementwise_vmap(_GammaQ.apply, info, in_dims, a, z)
+
+
+def _gamma_da(a, z, sign):
+    from math_tpu_torch.special.hyper import grad_reg_inc_gamma, grad_reg_lower_inc_gamma
+
+    return grad_reg_lower_inc_gamma(a, z) if sign > 0 else grad_reg_inc_gamma(a, z)
+
+
+def _gamma_partials(a, z, grad, need_a, need_z, sign):
+    """Cotangents of P (``sign`` 1) or Q (-1) for ``grad``."""
+    da = grad * _gamma_da(a, z, sign) if need_a else None
+    dz = sign * grad * _dgamma_dz(a, z) if need_z else None
+    return da, dz
+
+
+def _gamma_tangent(a, z, ta, tz, sign):
+    """Tangent of P (``sign`` 1) or Q (-1) for the input tangents."""
+    out = torch.zeros_like(a)
+    if ta is not None:
+        out = out + ta * _gamma_da(a, z, sign)
+    if tz is not None:
+        out = out + sign * tz * _dgamma_dz(a, z)
+    return out
 
 
 def gamma_p(a, z):

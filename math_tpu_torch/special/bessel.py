@@ -55,10 +55,19 @@ _GLW = 0.5 * np.pi * _GLW
 # exp-sinh nodes on (0, inf) for the semi-infinite decaying integrals:
 # t_k = exp((pi/2) sinh u_k), double-exponential weights
 _ES_LEVEL = 8
-_ES_H = 2.0**-_ES_LEVEL
-_ES_U = np.arange(-6.0 / _ES_H, 6.0 / _ES_H + 1) * _ES_H
-_ES_T = np.exp(0.5 * np.pi * np.sinh(_ES_U))
-_ES_W = _ES_H * 0.5 * np.pi * np.cosh(_ES_U) * _ES_T
+
+
+def _exp_sinh(level, span=6.0):
+    """Every exp-sinh node and weight of step ``2^-level`` over ``|u| <= span``
+    (inf where float64 overflows; the callers drop what they cannot use)."""
+    h = 2.0**-level
+    u = np.arange(-span / h, span / h + 1) * h
+    with np.errstate(over="ignore"):
+        t = np.exp(0.5 * np.pi * np.sinh(u))
+        return t, h * 0.5 * np.pi * np.cosh(u) * t
+
+
+_ES_T, _ES_W = _exp_sinh(_ES_LEVEL)
 # t capped where sinh(t) stays finite: beyond, e^{-x sinh t} underflows for
 # any representable x>0, and an inf node would poison gradients (0*inf)
 _keep = np.isfinite(_ES_T) & np.isfinite(_ES_W) & (_ES_T < 705.0)

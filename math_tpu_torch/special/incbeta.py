@@ -36,7 +36,8 @@ import math
 import numpy as np
 import torch
 
-from math_tpu_torch.special.basic import _f
+from math_tpu_torch.special.basic import _elementwise_vmap, _f
+from math_tpu_torch.utils.batch import plain_tensor
 
 __all__ = ["inc_beta", "inc_beta_dda", "inc_beta_ddb", "inc_beta_ddz", "grad_2F1", "grad_F32", "log_inc_beta"]
 
@@ -53,9 +54,11 @@ def reset_counts():
     LENTZ["calls"] = LENTZ["iterations"] = 0
 
 
-def _ts_nodes(levels=6, dtype=np.float64):
+def _ts_nodes(levels=6, dtype=np.float64, span=5.0):
+    """Tanh-sinh nodes and weights on (0, 1), step ``2^-levels`` over
+    ``|t| <= span``."""
     h = 0.5**levels
-    k = np.arange(-int(np.ceil(5.0 / h)), int(np.ceil(5.0 / h)) + 1)
+    k = np.arange(-int(np.ceil(span / h)), int(np.ceil(span / h)) + 1)
     t = k * h
     u = 0.5 * np.pi * np.sinh(t)
     x = np.tanh(u)  # in (-1, 1)
@@ -76,7 +79,7 @@ def _nodes(dtype, device):
     """``(S, log S, log W, -S)`` as tensors of ``dtype`` on ``device``, made once."""
     key = (dtype, str(device))
     if key not in _NODES:
-        _NODES[key] = tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in (_S, _LOG_S, _LOG_W, -_S))
+        _NODES[key] = tuple(plain_tensor(torch.as_tensor(v, dtype=dtype, device=device)) for v in (_S, _LOG_S, _LOG_W, -_S))
     return _NODES[key]
 
 
@@ -290,12 +293,29 @@ def _partials(a, b, x, p, need, chunked, log=False):
     return out
 
 
+def _tangent(a, b, x, value, tangents, log):
+    """Forward mode of ``_IncBeta`` / ``_LogIncBeta``: the partials autograd's
+    backward would take, computed with differentiable operations from the
+    saved inputs and the value through the Function again (``value``), times
+    the tangents; differentiable again by a reverse pass."""
+    need = tuple(t is not None for t in tangents)
+    parts = _partials(a, b, x, value, need, chunked=False, log=log)
+    out = torch.zeros_like(x)
+    for d, t in zip(parts, tangents):
+        if t is not None:
+            out = out + d * t
+    return out
+
+
 class _IncBeta(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, x):
-        p = _betainc(a, b, x)
-        ctx.save_for_backward(a, b, x, p)
-        return p
+    def forward(a, b, x):
+        return _betainc(a, b, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+        ctx.save_for_forward(*inputs)
 
     @staticmethod
     def backward(ctx, grad):
@@ -310,16 +330,28 @@ class _IncBeta(torch.autograd.Function):
                 parts = _partials(a, b, x, p, need, chunked=True)
         return tuple(None if d is None else grad * d for d in parts)
 
+    @staticmethod
+    def jvp(ctx, ta, tb, tx):
+        a, b, x = ctx.saved_tensors
+        return _tangent(a, b, x, _IncBeta.apply(a, b, x), (ta, tb, tx), log=False)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, x):
+        return _elementwise_vmap(_IncBeta.apply, info, in_dims, a, b, x)
+
 
 class _LogIncBeta(torch.autograd.Function):
     """log I_x(a, b) (``_log_betainc``) with the partials of ``_IncBeta``
-    divided by I, the same two modes."""
+    divided by I, the same two modes, and the same ``jvp`` and ``vmap``."""
 
     @staticmethod
-    def forward(ctx, a, b, x):
-        log_p = _log_betainc(a, b, x)
-        ctx.save_for_backward(a, b, x, log_p)
-        return log_p
+    def forward(a, b, x):
+        return _log_betainc(a, b, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+        ctx.save_for_forward(*inputs)
 
     @staticmethod
     def backward(ctx, grad):
@@ -331,6 +363,15 @@ class _LogIncBeta(torch.autograd.Function):
             with torch.no_grad():
                 parts = _partials(a, b, x, log_p, need, chunked=True, log=True)
         return tuple(None if d is None else grad * d for d in parts)
+
+    @staticmethod
+    def jvp(ctx, ta, tb, tx):
+        a, b, x = ctx.saved_tensors
+        return _tangent(a, b, x, _LogIncBeta.apply(a, b, x), (ta, tb, tx), log=True)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, x):
+        return _elementwise_vmap(_LogIncBeta.apply, info, in_dims, a, b, x)
 
 
 def inc_beta(a, b, x):

@@ -31,7 +31,7 @@ import torch
 
 from math_tpu_torch.ops.cholesky import cholesky_decompose
 from math_tpu_torch.special import LOG_TWO, log1m
-from math_tpu_torch.utils.batch import sum_event
+from math_tpu_torch.utils.batch import plain_tensor, sum_event
 
 
 def _tril_rowmajor(k: int):
@@ -48,8 +48,8 @@ def _tril_colmajor(k: int):
 @functools.lru_cache(maxsize=256)
 def _const(values, dtype, device):
     """A tuple of host constants (indices, weights, masks) as a tensor on
-    ``device``, made once."""
-    return torch.as_tensor(values, dtype=dtype, device=device)
+    ``device``, made once (``plain_tensor``: kept out of any transform)."""
+    return plain_tensor(torch.as_tensor(values, dtype=dtype, device=device))
 
 
 def _flat(rows, cols, n, device):

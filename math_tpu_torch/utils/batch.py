@@ -5,6 +5,7 @@ lanes are the first axis of its state and parameters."""
 from __future__ import annotations
 
 import torch
+from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
 
 
 def sum_event(x, batch_ndims=0):
@@ -36,3 +37,13 @@ def as_lanes(x0, theta):
     if x0.ndim != 2 or theta.ndim != 2 or theta.shape[0] != x0.shape[0]:
         raise ValueError(f"expected x0 (C, n) and theta (C, p); got {tuple(x0.shape)} and {tuple(theta.shape)}")
     return x0, theta, squeeze
+
+
+def plain_tensor(t):
+    """``t`` without the wrappers a ``torch.func`` transform puts on a tensor
+    made inside it: a factory's result belongs to the transform's level, and a
+    module-level cache that kept it would hand a later call a tensor that has
+    escaped its transform.  Every cache of constants stores this."""
+    while is_functorch_wrapped_tensor(t):
+        t = get_unwrapped(t)
+    return t

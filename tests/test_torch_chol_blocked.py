@@ -320,9 +320,13 @@ def test_mdivide_left_tri_low_blocked_is_the_reference(n, block, vec):
     rng = np.random.default_rng(n + block)
     L = np.tril(rng.normal(size=(2, n, n))) + 3.0 * np.eye(n)
     b = rng.normal(size=(2, n) if vec else (2, n, 3))
-    want = np.asarray(jch.mdivide_left_tri_low_blocked(jnp.asarray(L), jnp.asarray(b), block_size=block))
-    want_g = [np.asarray(g) for g in jax.grad(lambda l, bb: jch.mdivide_left_tri_low_blocked(l, bb, block_size=block).sum(),
-                                              (0, 1))(jnp.asarray(L), jnp.asarray(b))]
+    def solve(l, bb):
+        out = jch.mdivide_left_tri_low_blocked(l, bb, block_size=block)
+        return out.sum(), out
+
+    # value and gradients in one jax.jit: one trace and compile (eager, two traces took twice as long)
+    (_, want), want_g = jax.jit(jax.value_and_grad(solve, (0, 1), has_aux=True))(jnp.asarray(L), jnp.asarray(b))
+    want, want_g = np.asarray(want), [np.asarray(g) for g in want_g]
     Lt, bt = torch.tensor(L, requires_grad=True), torch.tensor(b, requires_grad=True)
     got = tch.mdivide_left_tri_low_blocked(Lt, bt, block_size=block)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-12, atol=1e-13)

@@ -147,12 +147,14 @@ def test_chains_dispatchers_vs_vmapped_dists(family):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_double_backward_raises(family):
-    """The double backward MATCHES the plain version, and only forward-mode AD
-    raises.  (The name dates from when the op was first-order only and its
-    double backward raised; it is kept so that the test's history stays one.)
-    Under ``create_graph=True`` the op differentiates the plain version, so the
-    second derivative equals autograd's through ``glm_fused_parts_reference``
-    (never silent zeros); forward mode has no rule here yet and raises."""
+    """The double backward and forward mode MATCH the plain version.  (The
+    name dates from when the op was first-order only and its double backward,
+    later its forward mode, raised; it is kept so that the test's history
+    stays one.)  Under ``create_graph=True`` the op differentiates the plain
+    version, so the second derivative equals autograd's through
+    ``glm_fused_parts_reference`` (never silent zeros); forward mode
+    (``torch.autograd.forward_ad``) reads the tangent off the saved partials
+    and equals the plain version's tangent."""
     extra = EXTRA[family]
     targs = [tt(A, grad=True), tt(B, grad=True)] + ([] if extra is None else [tt(extra, grad=True)])
     val = T_CHAINS[family](tt(Y[family]), tt(X), *targs)
@@ -169,10 +171,16 @@ def test_double_backward_raises(family):
     assert float(got[1].abs().max()) > 0.0
     for g, w in zip(got, want):
         close(g, w, rtol=1e-5, atol=1e-5)
-    with torch.autograd.forward_ad.dual_level():
-        dual = torch.autograd.forward_ad.make_dual(tt(B), torch.ones(B.shape))
-        with pytest.raises(RuntimeError):
-            T_CHAINS[family](tt(Y[family]), tt(X), tt(A), dual, *([] if extra is None else [tt(extra)]))
+    fwd = torch.autograd.forward_ad
+    tangents = [torch.ones(B.shape), torch.ones(B.shape)]
+    with fwd.dual_level():
+        dual = fwd.make_dual(tt(B), tangents[0])
+        got = fwd.unpack_dual(T_CHAINS[family](tt(Y[family]), tt(X), tt(A), dual, *([] if extra is None else [tt(extra)]))).tangent
+    with fwd.dual_level():
+        dual = fwd.make_dual(tt(B), tangents[1])
+        ref = gf.glm_fused_parts_reference(family, tt(Y[family]), tt(X), tt(A), dual, tt(extra))[0]
+        want = fwd.unpack_dual(ref).tangent
+    close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_wrapper_rejects_bad_operands():

@@ -65,15 +65,23 @@ def _lanes(seed=0):
     return Y0 * np.exp(0.1 * rng.normal(size=(C, 2))), THETA * np.exp(0.1 * rng.normal(size=(C, 4)))
 
 
+def _jax_values_and_grads(jax_solve, y0, th, ys=lambda out: out):
+    """The JAX side once: ``vmap`` of the solve's values and of the gradient
+    of ``sum(ys**2)``, in one ``jax.jit`` (one trace and compile for both;
+    eager, the two traces took half again as long)."""
+    def loss(a, b):
+        out = jax_solve(a, b)
+        return jnp.sum(jnp.square(ys(out))), out
+
+    (_, out), jg = jax.jit(jax.vmap(jax.value_and_grad(loss, (0, 1), has_aux=True)))(jnp.asarray(y0), jnp.asarray(th))
+    return out, jg
+
+
 def _both(jax_solve, torch_solve):
     """Values and the gradients of ``sum(ys**2)`` from both packages."""
     y0, th = _lanes()
-
-    def loss(a, b):
-        return jnp.sum(jnp.square(jax_solve(a, b)))
-
-    jv = np.asarray(jax.vmap(jax_solve)(jnp.asarray(y0), jnp.asarray(th)))
-    jg = jax.vmap(jax.grad(loss, (0, 1)))(jnp.asarray(y0), jnp.asarray(th))
+    jv, jg = _jax_values_and_grads(jax_solve, y0, th)
+    jv = np.asarray(jv)
     ty0 = torch.tensor(y0, requires_grad=True)
     tth = torch.tensor(th, requires_grad=True)
     tv = torch_solve(ty0, tth)
@@ -279,11 +287,8 @@ def bdf_pair():
 
 
 def _both_lanes(jax_solve, torch_solve, y0, th):
-    def loss(a, b):
-        return jnp.sum(jnp.square(jax_solve(a, b)))
-
-    jv = np.asarray(jax.vmap(jax_solve)(jnp.asarray(y0), jnp.asarray(th)))
-    jg = jax.vmap(jax.grad(loss, (0, 1)))(jnp.asarray(y0), jnp.asarray(th))
+    jv, jg = _jax_values_and_grads(jax_solve, y0, th)
+    jv = np.asarray(jv)
     ty0, tth = torch.tensor(y0, requires_grad=True), torch.tensor(th, requires_grad=True)
     tv = torch_solve(ty0, tth)
     gy0, gth = torch.autograd.grad(torch.square(tv).sum(), (ty0, tth))
@@ -345,9 +350,7 @@ def dae_pair():
     def jax_solve(a, b):
         return jode.integrate_dae(jax_dae_f, jax_dae_g, a, jnp.asarray(DAE_Z0), 0.0, DAE_TS, b)
 
-    jys, jzs = jax.vmap(jax_solve)(jnp.asarray(DAE_Y0), jnp.asarray(DAE_TH))
-    jg = jax.vmap(jax.grad(lambda a, b: jnp.sum(jnp.square(jax_solve(a, b)[0])), (0, 1)))(
-        jnp.asarray(DAE_Y0), jnp.asarray(DAE_TH))
+    (jys, jzs), jg = _jax_values_and_grads(jax_solve, DAE_Y0, DAE_TH, ys=lambda out: out[0])
     ty0, tth = torch.tensor(DAE_Y0, requires_grad=True), torch.tensor(DAE_TH, requires_grad=True)
     tys, tzs = tode.integrate_dae(jax_dae_f, torch_dae_g, ty0, torch.tensor(DAE_Z0), 0.0, DAE_TS, tth)
     gy0, gth = torch.autograd.grad(torch.square(tys).sum(), (ty0, tth))

@@ -68,7 +68,7 @@ LAYER = {
 
 def _port_files():
     out = ["chip_smoke.py", "tools/constrained_models.py", "tools/univariate_models.py", "tools/univariate_phases.py",
-           "tools/postfit_phases.py"]
+           "tools/postfit_phases.py", "tools/forward_phases.py"]
     for dirpath, _, files in os.walk(PKG):
         for fn in sorted(files):
             if fn.endswith(".py"):
@@ -114,6 +114,8 @@ def test_port_has_the_slice_modules():
         "math_tpu_torch/dists/deprecated.py", "tools/univariate_models.py", "math_tpu_torch/diagnostics/psis.py",
         "math_tpu_torch/diagnostics/loo.py", "math_tpu_torch/diagnostics/sbc.py", "math_tpu_torch/io/stan_csv.py",
         "math_tpu_torch/infer/optimize.py", "math_tpu_torch/infer/pathfinder.py", "tools/postfit_phases.py",
+        "math_tpu_torch/ops/integrate.py", "math_tpu_torch/utils/checks.py", "math_tpu_torch/utils/profiling.py",
+        "math_tpu_torch/testing.py", "math_tpu_torch/functional.py", "math_tpu_torch/stan.py", "tools/forward_phases.py",
     ):
         assert rel in files, rel
     for name in KERNEL_SOURCES:
@@ -292,12 +294,11 @@ def test_no_host_round_trip_in_special_and_dists(rel):
 # Package namespaces of the JAX tree and the names in them that have no twin
 # on purpose: TPU-only code (the Pallas kernels' modules; their CUDA twins
 # are ``ops/chol_blocked.py`` and ``ops/glm_fused.py``) and the modules still
-# in ROADMAP queue A (A9c-A9e, the Stan name surface; A11, ``parallel``).
+# in ROADMAP queue A (A11, ``parallel``).
 NAMESPACES = ("", "config", "diagnostics", "dists", "infer", "io", "model", "models", "ops", "special", "transforms", "utils")
 NO_TWIN_NAMES = {"config": {"KernelThresholds"}, "ops": {"cholesky_blocked_pallas"}}
 NO_TWIN_MODULES = {
     "ops/chol_pallas.py", "ops/pallas_glm.py",  # TPU-only
-    "ops/integrate.py", "utils/checks.py", "utils/profiling.py", "testing.py", "functional.py", "stan.py",  # A9c-A9e
     "parallel/__init__.py", "parallel/mesh.py",  # A11
 }
 
