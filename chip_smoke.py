@@ -225,7 +225,11 @@ The univariate slice, in the worker below:
   generator, moments within 5 Monte-Carlo errors of the closed forms, the
   same draws again from the same seed.  Prints the worst error of each.
 
-The worker: ``lv_path``, ``lv_rk45``, ``ode_family``, ``constrained_prior``,
+The worker: ``lv_path``, ``lv_second_order`` (``functional.hessian`` and
+``laplace_sample``, 300 draws, at an ``lv_path`` draw in float32: the kernel
+pair for every first-order gradient, the plain version for forward mode and
+the second order, each call counted; against the float64 plain model on
+CPU tensors), ``lv_rk45``, ``ode_family``, ``constrained_prior``,
 ``varying_slopes_path``, ``censored_nb_path`` and ``univariate_sweep`` run,
 in that order and as described, in a second process of this script (``--worker``) that starts
 after the kernel phases (``kernels``, ``kernels_chol``, ``wide``,
@@ -236,6 +240,12 @@ takes about the longer of the two rather than their sum.  Its counts are
 its own; it prints its phases' lines, which this process prints after its
 own, and its launches join the kernel entries.  Phase times from
 ``main_path`` on are taken beside the worker.
+
+When the main process's phases end, ``tools/sharded_phases.py`` runs beside
+the worker in a process of its own (``parallel/`` over NCCL in a group of one, and two processes that
+share the card over gloo; that script's docstring lists its phases and
+gates); its B1 launches join the ``kernels`` line, and its phases must end
+within ``SHARDED_BUDGET_S`` (the process's wall is reported beside them).
 
 With ``--profile`` further phases trace a few sampling transitions of the
 GLM, ordinal, multinomial, radon, LV, varying-slopes and censored NB paths
@@ -276,7 +286,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from math_tpu_torch import dists, get_config, special, transforms, update_config
+from math_tpu_torch import dists, functional, get_config, special, transforms, update_config
 from math_tpu_torch.diagnostics import convergence
 from math_tpu_torch.infer import (
     advi,
@@ -2575,6 +2585,102 @@ def drive_lv_rk45(position, y_obs, *, device="cuda"):
     return out
 
 
+# Limits of lv_second_order, set from a CPU rehearsal (float32 through the
+# kernel pair's Function with its stand-ins, an LV point near the reference
+# mode, against float64): Hessian 1.3e-6 and gradient 7.2e-7 of their
+# largest entry (limit 1e-4); the float32 mode's float64 Newton step 6.5e-4
+# posterior sd (limit 0.01); the Laplace Hessian 1.5e-6 of its largest
+# entry (limit 1e-4); the draws' means and sds against the float64 Gaussian
+# at that mode within 5 Monte-Carlo errors of LV_LAPLACE_DRAWS draws (mean
+# 5 / sqrt(n) sd, sd 5 / sqrt(2 n)).
+LV_LAPLACE_DRAWS = 300
+LV_SECOND_ORDER_LIMIT = {"hessian": 1e-4, "gradient": 1e-4, "mode_newton_sd": 0.01, "laplace_hessian": 1e-4}
+
+
+def lv_hessian64(model, y_obs, z):
+    """``(gradient, Hessian)`` of the float64 plain model at ``z`` (CPU
+    tensors; the Hessian by a double backward, 3x faster there than forward
+    over reverse and equal to 1e-15)."""
+    from math_tpu_torch.infer.optimize import hessian
+
+    y64, z64 = y_obs.double().cpu(), z.double().cpu()
+    return model.logp_and_grad(z64[None], y64)[1][0], hessian(model.logp, z64, (y64,))
+
+
+def drive_lv_second_order(model, y_obs, z, *, draws=LV_LAPLACE_DRAWS, seed=0, device="cuda"):
+    """ROADMAP C4 on the card: ``functional.hessian`` (forward over reverse)
+    at the LV point ``z (dim,)`` and ``laplace_sample`` from it (the mode by
+    L-BFGS through the kernel pair, the Hessian by a double backward,
+    ``draws`` draws' log densities by the forward kernel), in ``z``'s dtype on
+    ``device``, each with its kernel launches and plain calls, against the
+    float64 plain model on CPU tensors (``lv_hessian64``).  Gates:
+    ``LV_SECOND_ORDER_LIMIT`` and 5 Monte-Carlo errors (above)."""
+    from math_tpu_torch.infer import laplace_sample
+
+    lim = LV_SECOND_ORDER_LIMIT
+    f = lambda q: model.logp(q[None], y_obs)[0]  # noqa: E731
+    out = {"dtype": str(z.dtype), "draws": draws, "limits": lim}
+    lv_rk4.reset_counts()
+    t0 = time.perf_counter()
+    _, g, h = functional.hessian(f, z)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["hessian"] = {"seconds": time.perf_counter() - t0, "launches": dict(lv_rk4.LAUNCHES), "plain_calls": dict(lv_rk4.PLAIN_CALLS)}
+    lv_rk4.reset_counts()
+    t0 = time.perf_counter()
+    lap = laplace_sample(model.logp, torch.Generator(device=device).manual_seed(seed), model.dim, draws, args=(y_obs,),
+                         init=z, dtype=z.dtype, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["laplace"] = {"seconds": time.perf_counter() - t0, "launches": dict(lv_rk4.LAUNCHES), "plain_calls": dict(lv_rk4.PLAIN_CALLS),
+                      "lbfgs_grad_calls": int(lap.opt.num_grad_calls), "converged": bool(lap.opt.converged),
+                      "grad_norm": float(lap.opt.grad_norm)}
+    t0 = time.perf_counter()
+    g64, h64 = lv_hessian64(model, y_obs, z)
+    gm64, hm64 = lv_hessian64(model, y_obs, lap.mode)
+    out["float64_reference_seconds"] = time.perf_counter() - t0
+    cov64 = torch.linalg.inv(-hm64)
+    sd64 = torch.sqrt(torch.diagonal(cov64))
+    newton = cov64 @ gm64  # the float64 step from the float32 mode to the float64 one
+    d = lap.draws.double().cpu()
+    mode = lap.mode.double().cpu()
+    err = {
+        "hessian": float((h.double().cpu() - h64).abs().max() / h64.abs().max()),
+        "gradient": float((g.double().cpu() - g64).abs().max() / g64.abs().max()),
+        "mode_newton_sd": float((newton / sd64).abs().max()),
+        "laplace_hessian": float((lap.hessian.double().cpu() - hm64).abs().max() / hm64.abs().max()),
+        "draw_mean_sd": float(((d.mean(0) - mode) / sd64).abs().max()),
+        "draw_sd_ratio": float((d.std(0) / sd64 - 1.0).abs().max()),
+    }
+    out["errors"] = err
+    for k, v in lim.items():
+        require(err[k] <= v, f"lv_second_order: {k} error {err[k]} > {v}")
+    require(err["draw_mean_sd"] <= 5.0 / math.sqrt(draws), f"lv_second_order: Laplace draws' mean {err['draw_mean_sd']} sd")
+    require(err["draw_sd_ratio"] <= 5.0 / math.sqrt(2 * draws), f"lv_second_order: Laplace draws' sd ratio {err['draw_sd_ratio']}")
+    require(bool(torch.isfinite(lap.log_p).all()), "lv_second_order: non-finite Laplace log densities")
+    return out
+
+
+def phase_lv_second_order(position, y_obs):
+    """``drive_lv_second_order`` at an ``lv_path`` draw: one forward launch
+    for the Hessian's primal and the plain version for its derivatives (its
+    ``jvp`` and its reverse pass: 2 calls); Laplace's L-BFGS on the kernel
+    pair (an adjoint launch a gradient call) and one plain call for its
+    Hessian's double backward, whose outer pass reaches the kernel pair once
+    more through the likelihood's cotangent (one forward launch for the
+    Hessian's lanes, one for the draws' log densities, one more adjoint)."""
+    model = lotka_volterra.make(lotka_volterra.synthetic_data(LV_TIMES)[0], solver="rk4")
+    out = drive_lv_second_order(model, y_obs, position)
+    hess, lap = out["hessian"], out["laplace"]
+    require(hess["launches"] == {lv_rk4.FORWARD: 1, lv_rk4.ADJOINT: 0} and hess["plain_calls"]["lv_rk4_plain"] == 2,
+            f"lv_second_order: the Hessian's launches {hess}")
+    n = lap["lbfgs_grad_calls"]
+    require(n > 0 and lap["launches"] == {lv_rk4.FORWARD: n + 2, lv_rk4.ADJOINT: n + 1} and lap["plain_calls"]["lv_rk4_plain"] == 1,
+            f"lv_second_order: Laplace's launches {lap}")
+    emit("lv_second_order", **out)
+    return out
+
+
 def phase_lv_rk45(position, y_obs):
     lv_rk4.reset_counts()
     out = drive_lv_rk45(position, y_obs)
@@ -3824,10 +3930,17 @@ def phase_stan_surface():
     return seconds, counts["launches"]
 
 
-def start_worker(profiling):
-    """This script with ``--worker`` in a process of its own; its output is
-    read by a thread (a full pipe would stall it)."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--worker"] + (["--profile"] if profiling else [])
+# tools/sharded_phases.py's phases (the process's start-up, five processes
+# importing torch and making CUDA contexts together, is reported beside them:
+# 46-61 s in all on slow hosts)
+SHARDED_BUDGET_S = 45.0
+
+
+def start_worker(args):
+    """The script ``args`` (this one with ``--worker``, or a tool's) in a
+    process of its own; its output is read by a thread (a full pipe would
+    stall it)."""
+    cmd = [sys.executable] + args
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
     lines = []
     reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
@@ -3835,18 +3948,19 @@ def start_worker(profiling):
     return proc, reader, lines
 
 
-def finish_worker(worker):
-    """Wait for the worker, print its phases' lines, return its result."""
+def finish_worker(worker, key="worker_result"):
+    """Wait for a worker, print its phases' lines, return its result (the
+    line that holds ``key``)."""
     proc, reader, lines = worker
     rc = proc.wait()
     reader.join()
     result = None
     for line in lines:
-        if line.startswith('{"worker_result"'):
-            result = json.loads(line)["worker_result"]
+        if line.startswith('{"' + key + '"'):
+            result = json.loads(line)[key]
         else:
             print(line, end="", flush=True)
-    require(rc == 0 and result is not None, f"the worker's phases failed (exit code {rc})")
+    require(rc == 0 and result is not None, f"the phases of {key} failed (exit code {rc})")
     return result
 
 
@@ -3858,6 +3972,7 @@ def worker_main(profiling):
     require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must stay off: the port's products are float32")
     x = glm_logistic.synthetic_data(N_MAIN, K_MAIN)[0]
     lv_res, lv_model, lv_args, lv_launches = phase_lv_path()
+    lv_second = phase_lv_second_order(lv_res.position[0, -1, :].contiguous(), lv_args[0])
     if profiling:
         kernels, total_us, calls = phase_profile(lv_res, lv_model, lv_args, label="profile_lv")
         pair_us = sum(dev_us(e) for e in kernels if lv_rk4.KERNEL in e.key)
@@ -3878,7 +3993,7 @@ def worker_main(profiling):
         profile_inc_beta_share(nb_res, nb_model, nb_args)
     del nb_res, nb_model, nb_args
     phase_univariate_sweep()
-    print(json.dumps({"worker_result": {"lv_launches": lv_launches, "chol_launches": chol_launches,
+    print(json.dumps({"worker_result": {"lv_launches": lv_launches, "lv_second_order": lv_second, "chol_launches": chol_launches,
                                         "nb_launches": nb_launches, "nb_at_path": nb_at_path}}), flush=True)
 
 
@@ -3894,16 +4009,31 @@ def main():
     phase_wide(x)
     lv_entry = phase_kernels_lv()
     chol_entry["small_shapes"] = phase_kernels_chol_small()
-    worker = start_worker(profiling)
+    worker = start_worker([os.path.abspath(__file__), "--worker"] + (["--profile"] if profiling else []))
+    sharded = None
     try:
         main_phases(profiling, x, y, beta_true, entries, chol_entry, ord_entry, cat_entry)
+        # beside the worker's last phases, in a process of its own (so that
+        # the NCCL group never lives in this one): after the worker it added
+        # its 40 s to the script (1,115 s on the slowest host seen)
+        t0 = time.perf_counter()
+        sharded = start_worker([os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "sharded_phases.py")])
+        sharded_result = finish_worker(sharded, "sharded_result")
+        sharded_wall = time.perf_counter() - t0
         result = finish_worker(worker)
     finally:
-        if worker[0].poll() is None:
-            worker[0].kill()
-            worker[0].wait()
+        for w in (worker, sharded):
+            if w is not None and w[0].poll() is None:
+                w[0].kill()
+                w[0].wait()
+    emit("sharded_wall", process_s=sharded_wall, phases_s=sharded_result["seconds"], budget_s=SHARDED_BUDGET_S)
+    require(sharded_result["seconds"] <= SHARDED_BUDGET_S,
+            f"the sharded phases took {sharded_result['seconds']} s of their {SHARDED_BUDGET_S} s")
+    entries[0]["launches"] += sharded_result["b1_launches"]
+    entries[0]["sharded"] = {"launches": sharded_result["b1_launches"]}
     chol_entry["launches"] += result["chol_launches"]
     lv_entry["launches"] = result["lv_launches"]
+    lv_entry["second_order"] = {k: result["lv_second_order"][k] for k in ("hessian", "laplace", "errors")}
     entries.append(lv_entry)
     nb_entry = next(e for e in entries if e["name"] == f"glm_fused[{NB_FAMILY}]")
     nb_entry["launches"] += result["nb_launches"]

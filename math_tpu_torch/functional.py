@@ -149,10 +149,11 @@ def map_rect(f: Callable, shared_params, job_params, x_r=None, x_i=None, *, axis
 
     ``f(shared, job_param, x_r_j, x_i_j) -> vector``; the jobs ride
     ``torch.func.vmap`` and concatenate, exactly like the reference's per-job
-    output stacking (``map_rect_combine.hpp:65-91``).  Jobs across devices
-    (``axis_name``) wait for ROADMAP A11 and raise."""
-    if axis_name is not None:
-        raise NotImplementedError("map_rect(axis_name=...): jobs across devices are not ported yet (ROADMAP A11)")
+    output stacking (``map_rect_combine.hpp:65-91``).  Jobs across devices:
+    every rank calls this on its own jobs and passes ``axis_name``, which
+    changes nothing here, as in the reference (functional.py:125-152): the
+    outputs stay the rank's, since a log-density consumer reduces them across
+    the ranks anyway (``parallel.sharded_data_logdensity``)."""
     job_params = _x(job_params, shared_params)
     n_jobs = job_params.shape[0]
     if x_r is None:

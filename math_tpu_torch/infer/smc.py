@@ -22,9 +22,17 @@ noise stay those of the unbatched run.  ``smc_tempered`` and
 ``smc_tempered_stagewise`` are host loops over the one shared stage
 function, so they agree particle for particle.
 
-Single device: ``axis_name`` (particles sharded over devices, with
-``ancestor_exchange``) raises ``NotImplementedError``.  All noise comes from
-one ``torch.Generator`` (resampling and mutation in a fixed order).
+On one device all noise comes from one ``torch.Generator`` (resampling and
+mutation in a fixed order).  Across devices (``smc_tempered(axis_name=...)``,
+one process a device, ``parallel.chain_mesh``): each rank holds
+``num_particles`` particles; the log-likelihoods are all-gathered (one scalar
+a particle), so every rank chooses the same temperature and, from the shared
+generator, the same global resampling indices; ancestors travel by block
+rotations only where some rank needs one (``ancestor_exchange``), never by an
+all-gather of particles; the mutation's metric and acceptance are pooled over
+the ranks.  Two streams, as the reference's (smc.py:246-256): the caller's
+generator, the same on every rank, drives the ladder's resampling; a
+generator derived from it and the rank drives initialisation and mutation.
 """
 
 from __future__ import annotations
@@ -35,8 +43,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from math_tpu_torch.config import get_config
-from math_tpu_torch.infer.nuts import IntegratorState, nuts_kernel
+from math_tpu_torch.infer.nuts import ChainNoise, IntegratorState, nuts_kernel
 from math_tpu_torch.infer.sample import _noise
+from math_tpu_torch.utils import _collectives as coll
 
 
 class SMCResult(NamedTuple):
@@ -62,10 +71,37 @@ def systematic_resample(key, log_weights):
 
 
 def ancestor_exchange(z, idx, axis_name):
-    """Fetch global ancestor particles into local slots across devices (ref:
-    smc.py:59, ``ppermute`` block rotations).  Not ported yet: the port runs
-    on one device."""
-    raise NotImplementedError("ancestor_exchange (SMC across devices) is not ported yet")
+    """Fetch global ancestor particles into local slots without an all-gather
+    (ref: smc.py:59-94).
+
+    ``z`` is this rank's ``(n, dim)`` block; ``idx`` the global ancestor ids
+    (in ``[0, n * R)``) this rank must receive.  Rotating the blocks by an
+    offset ``d`` delivers rank ``(r + d) % R``'s block to rank ``r``; a
+    rotation runs only where some rank needs an ancestor at that offset (one
+    all-reduce MAX of every rank's demand for every offset, so every rank
+    takes the same rotations and the collectives stay in step).
+
+    Transfer bound: bytes moved = (#distinct needed offsets) x block size,
+    against an all-gather's (R - 1) x block size; systematic-resample ids are
+    sorted, so the needed offsets are a contiguous band around 0.
+    """
+    n = z.shape[0]
+    size, rank = coll.axis_size(axis_name), coll.axis_index(axis_name)
+    src_shard, src_pos = idx // n, idx % n
+    # offset 0: ancestors already resident.  Slots whose ancestor lives
+    # elsewhere also start from a valid local particle, not zeros.
+    out = z[src_pos]
+    if size == 1:
+        return out
+    offsets = torch.arange(1, size, device=idx.device)
+    demand = (src_shard[None, :] == (rank + offsets[:, None]) % size).any(1).to(torch.int64)
+    need = coll.pmax(demand, axis_name).tolist()
+    for d, needed in zip(range(1, size), need):
+        if needed:
+            zr = coll.rotate(z, d, axis_name)
+            sel = src_shard == (rank + d) % size
+            out = torch.where(sel[:, None], zr[src_pos], out)
+    return out
 
 
 def _rel_ess(log_w):
@@ -103,6 +139,35 @@ def _pbatch_map(fn, z, batch):
     return torch.cat(outs)
 
 
+class _SharedAndRankNoise:
+    """The two streams of sharded SMC behind ``ChainNoise``'s methods:
+    resampling (``site="resample"``) draws from the shared stream, the same on
+    every rank; every other site from this rank's."""
+
+    def __init__(self, shared, rank):
+        self.shared, self.rank = shared, rank
+
+    def _stream(self, site):
+        return self.shared if site == "resample" else self.rank
+
+    def normal(self, shape, site=None):
+        return self._stream(site).normal(shape, site)
+
+    def uniform(self, shape, site=None):
+        return self._stream(site).uniform(shape, site)
+
+    def bernoulli(self, shape, site=None):
+        return self._stream(site).bernoulli(shape, site)
+
+
+def _sharded_noise(key, rank, device, dtype):
+    """The streams of rank ``rank`` from the caller's generator ``key``:
+    ``key`` itself (shared) and ``_collectives.rank_generator(key, rank)``."""
+    if not isinstance(key, torch.Generator):
+        raise TypeError("smc_tempered(axis_name=...): key must be a torch.Generator, the same seed on every rank")
+    return _SharedAndRankNoise(ChainNoise(key, device, dtype), ChainNoise(coll.rank_generator(key, rank, device), device, dtype))
+
+
 class _StageState(NamedTuple):
     z: torch.Tensor
     t: torch.Tensor
@@ -116,9 +181,9 @@ def _make_smc_stage(
     target_rel_ess, init_scale, axis_name, particle_batch,
 ):
     """The per-stage transition shared by both entry points (one body, so
-    the entry point cannot change the stream).  ``stage(noise, carry) -> carry``."""
-    if axis_name is not None:
-        raise NotImplementedError("SMC across devices (axis_name, ancestor_exchange) is not ported yet")
+    the entry point cannot change the stream).  ``stage(noise, carry) ->
+    carry``; with ``axis_name`` each rank's ``carry`` holds its
+    ``num_particles`` particles and ``noise`` is ``_SharedAndRankNoise``."""
     log_scale = dim * math.log(init_scale)
 
     def ref_lp(z):
@@ -138,27 +203,38 @@ def _make_smc_stage(
 
         return lambda z: _pbatch_map(one, z, particle_batch)
 
+    def pmean(x):
+        return x if axis_name is None else coll.pmean(x, axis_name)
+
     def stage(noise, carry: _StageState) -> _StageState:
         z, t, logz, stage_idx, eps = carry
         with torch.no_grad():
             log_like = _pbatch_map(log_like_fn, z, particle_batch)
         log_like = torch.where(torch.isnan(log_like), -torch.inf, log_like)
+        if axis_name is not None:  # every rank's: one scalar a particle
+            log_like = coll.all_gather(log_like, axis_name)
         t_new = _next_temperature(t, log_like, target_rel_ess)
         log_w = (t_new - t) * log_like
         logz = logz + torch.logsumexp(log_w, 0) - math.log(log_w.shape[0])
-        z = z[systematic_resample(noise, log_w)]
+        idx = systematic_resample(noise, log_w)
+        if axis_name is None:
+            z = z[idx]
+        else:
+            rank = coll.axis_index(axis_name)
+            z = ancestor_exchange(z, idx[rank * num_particles:(rank + 1) * num_particles], axis_name)
 
         # mutation: NUTS at the new tempered target, one step size for all
-        # particles and a metric from the population's variance
+        # particles and a metric from the population's variance (every
+        # rank's, ref: smc.py:205-230)
         lg = tempered_value_and_grad(t_new)
         lp0, g0 = lg(z)
         states = IntegratorState(z, torch.zeros_like(z), lp0, g0)
-        mean = torch.mean(z, 0)
-        inv_mass = torch.clamp(torch.mean(torch.square(z - mean), 0), min=1e-6)
+        mean = pmean(torch.mean(z, 0))
+        inv_mass = torch.clamp(pmean(torch.mean(torch.square(z - mean), 0)), min=1e-6)
         acc = None
         for _ in range(mutation_steps):
             states, stats = nuts_kernel(noise, states, lg, eps, inv_mass, max_depth=max_depth)
-            acc = torch.mean(stats.accept_prob)
+            acc = pmean(torch.mean(stats.accept_prob))
         # crude Robbins-Monro step-size tune toward 0.65 acceptance
         eps = eps * torch.exp(1.0 * (acc - 0.65))
         return _StageState(states.z, t_new, logz, stage_idx + 1, eps)
@@ -185,7 +261,10 @@ def _run_stages(
         logdensity_fn, dim, args, num_particles, mutation_steps, max_depth,
         target_rel_ess, init_scale, axis_name, particle_batch,
     )
-    noise = _noise(key, device, dtype)
+    if axis_name is None:
+        noise = _noise(key, device, dtype)
+    else:
+        noise = _sharded_noise(key, coll.axis_index(axis_name), device, dtype)
     with torch.no_grad():
         carry = _smc_init(noise, dim, num_particles, init_scale, dtype, device)
         ladder = []
@@ -196,6 +275,11 @@ def _run_stages(
             ladder.append(t)
             if progress_fn is not None:
                 progress_fn(carry.stage_idx, t, float(carry.logz))
+        if axis_name is not None:
+            # replicated by construction (gathered weights, pooled
+            # acceptance); made explicit as the reference does (smc.py:318-323)
+            carry = carry._replace(logz=coll.pmean(carry.logz, axis_name), eps=coll.pmean(carry.eps, axis_name),
+                                   stage_idx=coll.pmax_int(carry.stage_idx, axis_name, device))
     return SMCResult(
         particles=carry.z, log_evidence=carry.logz, num_stages=carry.stage_idx,
         final_step_size=carry.eps, temperatures=tuple(ladder),
@@ -228,8 +312,15 @@ def smc_tempered(
     ``particle_batch``: evaluate the log density in sub-batches of that many
     particles to bound peak memory (needed when each particle's log density
     holds large intermediates, e.g. an (n, n) GP kernel matrix); must divide
-    ``num_particles``.  ``axis_name`` (particles sharded over devices) is not
-    ported yet and raises.
+    ``num_particles``.
+
+    ``axis_name`` (a mesh axis, ``parallel.chain_mesh``): every rank of the
+    axis calls this with the same arguments and the same ``key`` (a
+    ``torch.Generator``); ``num_particles`` is then the rank's count and
+    ``particles`` the rank's block of the global population (ref:
+    smc.py:276-323).  Temperature and resampling read the gathered weights,
+    ancestors move by ``ancestor_exchange``; ``log_evidence``,
+    ``final_step_size`` and ``num_stages`` are the same on every rank.
 
     A host loop over stages with one scalar synchronisation a stage, as
     ``smc_tempered_stagewise``; the two return the same particles.

@@ -15,10 +15,11 @@ computes).  The kernel's note says what bounds it.
 Rules: on a CUDA tensor ``lv_rk4`` launches the kernels (float32 or float64)
 or raises; it takes the plain version ``lv_rk4_plain`` (``ode_rk4_fixed``
 through autograd) only for tensors on the CPU.  ``LAUNCHES`` counts kernel
-launches, ``PLAIN_CALLS`` calls of the plain version.  On the card the
-gradient is first order only: a second differentiation raises (the plain
-version keeps every order).  ``lv_rk4_adjoint_reference`` is the adjoint
-sweep written in PyTorch in the kernel's order, for the tests.
+launches, ``PLAIN_CALLS`` calls of the plain version.  On the card a
+first-order gradient is the kernel pair's alone; forward mode and a second
+order take the plain version for their derivative (``_LvRk4``), each such
+call counted.  ``lv_rk4_adjoint_reference`` is the adjoint sweep written in
+PyTorch in the kernel's order, for the tests.
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ import functools
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from math_tpu_torch.ops import _build, ode
+from math_tpu_torch.ops._forward import differentiated_again
 from math_tpu_torch.utils.batch import plain_tensor
 
 KERNEL = "lv_rk4"
@@ -226,23 +227,68 @@ def lv_rk4_adjoint(z0, t0, ts, theta, steps_per_interval, ys, gbar, stamps=None)
     return z0bar, tbar
 
 
+def _plain_vjp(z0, theta, t0, ts, steps, gbar):
+    """``(z0bar, thetabar)`` through the differentiable plain version."""
+    _, pullback = torch.func.vjp(lambda z, th: lv_rk4_plain(z, t0, ts, th, steps), z0, theta)
+    return pullback(gbar)
+
+
 class _LvRk4(torch.autograd.Function):
-    """Forward kernel forward, adjoint kernel backward; first order only."""
+    """The forward kernel forward, the adjoint kernel backward.
+
+    - First-order reverse (a sampler's gradient, ``torch.func.grad`` /
+      ``jacrev``): one forward and one adjoint launch, no plain call.
+    - A backward whose result will be differentiated again (``create_graph``,
+      ``functional.hessian``, ``laplace_sample``; ``ops/_forward.py``) and
+      forward mode (``jvp``) take the differentiable plain version
+      ``lv_rk4_plain``, as B1's second order takes its plain partials
+      (pallas_glm.py:220-237): the kernel pair computes first-order reverse
+      only (a forward-sensitivity kernel: ROADMAP B8).
+    - ``vmap`` folds a vmapped ``z0`` / ``theta`` axis into the chain lanes:
+      one launch for the whole batch.
+
+    ``z0`` and ``theta`` must be contiguous (``lv_rk4`` lays them out)."""
 
     @staticmethod
-    def forward(ctx, z0, theta, t0, ts, steps):
-        z0, theta = z0.contiguous(), theta.contiguous()
-        ys = lv_rk4_forward(z0, t0, ts, theta, steps)
+    def forward(z0, theta, t0, ts, steps):
+        return lv_rk4_forward(z0, t0, ts, theta, steps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        z0, theta, t0, ts, steps = inputs
         ctx.t0, ctx.ts, ctx.steps = t0, ts, steps
-        ctx.save_for_backward(z0, theta, ys)
-        return ys
+        ctx.save_for_backward(z0, theta, output)
+        ctx.save_for_forward(z0, theta)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, gbar):
         z0, theta, ys = ctx.saved_tensors
-        z0bar, tbar = lv_rk4_adjoint(z0, ctx.t0, ctx.ts, theta, ctx.steps, ys, gbar.contiguous())
+        if differentiated_again(z0, theta):
+            z0bar, tbar = _plain_vjp(z0, theta, ctx.t0, ctx.ts, ctx.steps, gbar)
+        else:
+            z0bar, tbar = lv_rk4_adjoint(z0, ctx.t0, ctx.ts, theta, ctx.steps, ys, gbar.contiguous())
         return z0bar, tbar, None, None, None
+
+    @staticmethod
+    def jvp(ctx, tz0, ttheta, *_):
+        z0, theta = ctx.saved_tensors
+        tz0 = torch.zeros_like(z0) if tz0 is None else tz0
+        ttheta = torch.zeros_like(theta) if ttheta is None else ttheta
+        return torch.func.jvp(lambda z, th: lv_rk4_plain(z, ctx.t0, ctx.ts, th, ctx.steps), (z0, theta), (tz0, ttheta))[1]
+
+    @staticmethod
+    def vmap(info, in_dims, z0, theta, t0, ts, steps):
+        v = info.batch_size
+        z0, theta = (_fold_lanes(t, d, v) for t, d in zip((z0, theta), in_dims[:2]))
+        ys = _LvRk4.apply(z0, theta, t0, ts, steps)
+        return ys.reshape((v, -1) + tuple(ys.shape[1:])), 0
+
+
+def _fold_lanes(t, d, v):
+    """``(C, k)`` with the vmapped axis ``d`` (None: broadcast to ``v``)
+    folded into the lanes: ``(v*C, k)``, contiguous."""
+    t = t.expand((v,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+    return t.reshape((-1,) + tuple(t.shape[2:])).contiguous()
 
 
 def lv_rk4(z0, t0, ts, theta, steps_per_interval):
@@ -255,4 +301,4 @@ def lv_rk4(z0, t0, ts, theta, steps_per_interval):
         return lv_rk4_plain(z0, t0, ts, theta, steps_per_interval)
     if z0.device.type != "cuda":
         raise ValueError(f"lv_rk4: no kernel for device {z0.device}")
-    return _LvRk4.apply(z0, theta, t0, ts, int(steps_per_interval))
+    return _LvRk4.apply(z0.contiguous(), theta.contiguous(), t0, ts, int(steps_per_interval))

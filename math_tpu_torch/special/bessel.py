@@ -24,6 +24,7 @@ takes over at |z| > max(500, 2 n^2) for J/Y and z > 700 for I).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -46,11 +47,17 @@ _TW = np.full(_NTRAP + 1, np.pi / _NTRAP)
 _TW[0] *= 0.5
 _TW[-1] *= 0.5
 
-# Gauss-Legendre nodes mapped to [0, pi] (for the non-periodic Neumann
-# oscillatory integrand, where trapezoid is only O(h^2))
-_GLX, _GLW = np.polynomial.legendre.leggauss(_NTRAP)
-_GLT = 0.5 * np.pi * (_GLX + 1.0)
-_GLW = 0.5 * np.pi * _GLW
+
+
+@functools.lru_cache(maxsize=None)
+def _gauss_legendre():
+    """Gauss-Legendre nodes and weights mapped to [0, pi] (for the
+    non-periodic Neumann oscillatory integrand, where trapezoid is only
+    O(h^2)), made at first use: ``leggauss(2048)`` is an eigenvalue problem
+    that takes 0.5 s on one core and tens of seconds where several processes
+    import the package together and each starts a BLAS thread pool."""
+    x, w = np.polynomial.legendre.leggauss(_NTRAP)
+    return 0.5 * np.pi * (x + 1.0), 0.5 * np.pi * w
 
 # exp-sinh nodes on (0, inf) for the semi-infinite decaying integrals:
 # t_k = exp((pi/2) sinh u_k), double-exponential weights
@@ -161,7 +168,7 @@ def _y_quad(n, x, dtype, device):
     def osc(t):
         return torch.sin(x[..., None] * torch.sin(t) - n[..., None] * t)
 
-    o = _quad(_GLT, _GLW, osc, dtype, device) / math.pi
+    o = _quad(*_gauss_legendre(), osc, dtype, device) / math.pi
 
     def decay(t):
         nt = n[..., None] * t

@@ -76,10 +76,27 @@ def test_chunked_equals_monolithic_to_the_bit(warmup_chunk, sample_chunk):
 
 
 def test_chunked_mesh_is_not_ported():
+    """(The name is from before ``mesh=`` was ported.)  Over a mesh of one
+    rank (a group of one in this process) the chunked driver gives the
+    one-device run's draws bit for bit: an all-reduce or an all-gather over
+    one rank is the identity.  Meshes of several ranks:
+    ``tests/test_torch_parallel.py``."""
+    import torch.distributed as dist
+
+    from math_tpu_torch.parallel import chain_mesh
+
     tm = tes.make()
-    with pytest.raises(NotImplementedError):
-        run_pooled_chains_chunked(torch.Generator(), _z0(2, tm.dim, 0), tm.logp, num_warmup=10, num_samples=10,
-                                  mesh=object(), device="cpu")
+    made = not dist.is_initialized()
+    mesh = chain_mesh(axis="chain", device="cpu")
+    try:
+        kw = dict(num_warmup=30, num_samples=20, max_depth=5, warmup_chunk=7, sample_chunk=6, device="cpu")
+        want = run_pooled_chains_chunked(torch.Generator().manual_seed(4), _z0(4, tm.dim, 0), tm.logp, **kw)
+        got = run_pooled_chains_chunked(torch.Generator().manual_seed(4), _z0(4, tm.dim, 0), tm.logp, mesh=mesh, **kw)
+        for f in ("position", "n_leapfrog", "step_size", "inv_mass"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def test_chunked_auto_depth_on_eight_schools():

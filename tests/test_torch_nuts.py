@@ -213,7 +213,7 @@ def test_find_reasonable_step_size_momentum_replayed():
     z, _, logp, grad = _state(rng, scale=np.array([0.2, 1.0, 3.0, 6.0])[:, None])
     keys = jax.random.split(jax.random.PRNGKey(11), C)
     jstate = jnuts.IntegratorState(*map(jnp.asarray, (z, np.zeros_like(z), logp, grad)))
-    want = jax.vmap(lambda k, s: jadapt.find_reasonable_step_size(k, J_LOGP_GRAD, s, jnp.asarray(im)))(keys, jstate)
+    want = jax.jit(jax.vmap(lambda k, s: jadapt.find_reasonable_step_size(k, J_LOGP_GRAD, s, jnp.asarray(im))))(keys, jstate)
     noise = ReplayNoise(
         {"step_size_momentum": np.stack([np.asarray(jax.random.normal(k, (D,), jnp.float64)) for k in keys])}
     )

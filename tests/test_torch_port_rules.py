@@ -22,7 +22,9 @@
   docstring in every module;
 - every public callable of a ``math_tpu`` package namespace resolves in its
   ``math_tpu_torch`` twin, and every module of the JAX tree has its twin
-  file, but the TPU-only names and the modules still in ROADMAP queue A.
+  file, but the TPU-only names and modules;
+- the collectives the samplers' ``axis_name`` branches use sit below
+  ``infer/`` (``utils/_collectives.py``), never in ``parallel/``.
 """
 
 import importlib
@@ -63,12 +65,13 @@ LAYER = {
     "infer": 4,
     "models": 4,
     "convert": 5,
+    "parallel": 5,
 }
 
 
 def _port_files():
     out = ["chip_smoke.py", "tools/constrained_models.py", "tools/univariate_models.py", "tools/univariate_phases.py",
-           "tools/postfit_phases.py", "tools/forward_phases.py"]
+           "tools/postfit_phases.py", "tools/forward_phases.py", "tools/sharded_phases.py"]
     for dirpath, _, files in os.walk(PKG):
         for fn in sorted(files):
             if fn.endswith(".py"):
@@ -116,6 +119,8 @@ def test_port_has_the_slice_modules():
         "math_tpu_torch/infer/optimize.py", "math_tpu_torch/infer/pathfinder.py", "tools/postfit_phases.py",
         "math_tpu_torch/ops/integrate.py", "math_tpu_torch/utils/checks.py", "math_tpu_torch/utils/profiling.py",
         "math_tpu_torch/testing.py", "math_tpu_torch/functional.py", "math_tpu_torch/stan.py", "tools/forward_phases.py",
+        "math_tpu_torch/utils/_collectives.py", "math_tpu_torch/parallel/__init__.py", "math_tpu_torch/parallel/mesh.py",
+        "tools/sharded_phases.py",
     ):
         assert rel in files, rel
     for name in KERNEL_SOURCES:
@@ -138,6 +143,18 @@ def test_layer_dag():
             if tgt_layer is not None and tgt_layer > src_layer:
                 violations.append(f"{rel} (L{src_layer}) -> {mod} (L{tgt_layer})")
     assert not violations, "layering violations:\n" + "\n".join(violations)
+
+
+def test_collectives_sit_below_infer():
+    """The samplers take ``axis_name`` through ``utils/_collectives.py``
+    (layer 0), not through ``parallel/`` (the reference's layering is
+    parallel -> infer); the collectives import nothing of the port."""
+    port_imports = [m for m in _imports_of(os.path.join(PKG, "utils", "_collectives.py")) if m.startswith("math_tpu_torch")]
+    assert not port_imports, port_imports
+    for rel in ("infer/pooled.py", "infer/smc.py"):
+        mods = list(_imports_of(os.path.join(PKG, rel)))
+        assert "math_tpu_torch.utils" in mods or "math_tpu_torch.utils._collectives" in mods, rel
+        assert not [m for m in mods if m.startswith("math_tpu_torch.parallel")], rel
 
 
 @pytest.mark.parametrize("rel", _port_files() + KERNEL_SOURCES)
@@ -293,14 +310,12 @@ def test_no_host_round_trip_in_special_and_dists(rel):
 
 # Package namespaces of the JAX tree and the names in them that have no twin
 # on purpose: TPU-only code (the Pallas kernels' modules; their CUDA twins
-# are ``ops/chol_blocked.py`` and ``ops/glm_fused.py``) and the modules still
-# in ROADMAP queue A (A11, ``parallel``).
-NAMESPACES = ("", "config", "diagnostics", "dists", "infer", "io", "model", "models", "ops", "special", "transforms", "utils")
+# are ``ops/chol_blocked.py`` and ``ops/glm_fused.py``); every other module
+# has its twin.
+NAMESPACES = ("", "config", "diagnostics", "dists", "infer", "io", "model", "models", "ops", "parallel", "special",
+              "transforms", "utils")
 NO_TWIN_NAMES = {"config": {"KernelThresholds"}, "ops": {"cholesky_blocked_pallas"}}
-NO_TWIN_MODULES = {
-    "ops/chol_pallas.py", "ops/pallas_glm.py",  # TPU-only
-    "parallel/__init__.py", "parallel/mesh.py",  # A11
-}
+NO_TWIN_MODULES = {"ops/chol_pallas.py", "ops/pallas_glm.py"}  # TPU-only
 
 
 def _public_callables(mod):

@@ -9,7 +9,8 @@ held statistically with the reference tests' limits
 (``tests/test_advi_smc.py:104-139``: Gaussian moments and log evidence,
 eight-schools ``mu``), and by its invariants: ``smc_tempered`` equals
 ``smc_tempered_stagewise`` particle for particle, ``particle_batch=32``
-equals the unbatched run bit for bit, and ``axis_name`` raises.
+equals the unbatched run bit for bit, and ``axis_name`` at world size 1
+equals the local run drawn from the same two streams.
 """
 
 import importlib
@@ -160,7 +161,27 @@ def test_smc_nan_log_likelihood_is_minus_inf():
 
 
 def test_axis_name_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        smc_tempered(lambda z: -0.5 * z.square().sum(-1), torch.Generator(), 2, num_particles=8, axis_name="p", **F64)
-    with pytest.raises(NotImplementedError):
-        tsmc.ancestor_exchange(torch.zeros(4, 2), torch.arange(4), "p")
+    """(The name is from before ``axis_name`` was ported.)  At world size 1
+    (a group of one in this process) ``axis_name`` gives the local run's
+    particles bit for bit when the local run draws from the same two streams
+    (``_sharded_noise``: resampling from the caller's generator, the rest
+    from the rank's); ``ancestor_exchange`` over one rank is ``z[idx]``.  The
+    runs over several ranks: ``tests/test_torch_smc_sharded.py``."""
+    import torch.distributed as dist
+
+    from math_tpu_torch.parallel import chain_mesh
+
+    made = not dist.is_initialized()
+    chain_mesh(axis="p", device="cpu")
+    try:
+        ld = lambda z: -0.5 * torch.square(z - 1.0).sum(-1) / 0.25  # noqa: E731
+        kw = dict(num_particles=64, mutation_steps=2, **F64)
+        got = smc_tempered(ld, torch.Generator().manual_seed(5), 2, axis_name="p", **kw)
+        want = smc_tempered(ld, tsmc._sharded_noise(torch.Generator().manual_seed(5), 0, "cpu", torch.float64), 2, **kw)
+        assert torch.equal(got.particles, want.particles)
+        assert float(got.log_evidence) == float(want.log_evidence) and got.num_stages == want.num_stages
+        z, idx = torch.randn(8, 2, dtype=torch.float64), torch.tensor([0, 0, 3, 5, 5, 6, 7, 7])
+        assert torch.equal(tsmc.ancestor_exchange(z, idx, "p"), z[idx])
+    finally:
+        if made:
+            dist.destroy_process_group()
