@@ -110,8 +110,15 @@ before (the four families at D = 282 and 1024, the ordered GLM at D =
 236, K = 5 and D = 1024, K = 12, the categorical at K = 65 and 200, D = 400 and
 D = 212 at K = 41; an x 4 bytes off a 16-byte boundary, a transposed x, an
 int64 y) through the public dispatchers, value and gradients against the
-float64 plain version, and times the wide shapes at N = 100,000, C = 256
-beside their bounds and the two products in float32 cuBLAS.  ``kernels_chol`` prints the block
+float64 plain version (the categorical shapes, which take the tiled
+tensor-core pair, also at (7, 65), (320, 5), (700, 3), (330, 30) and (400, 12), and the four at N =
+100,000 with C = 8; a ``torch.func.jvp`` through the pair at (50, 65)), and
+times the wide shapes at N = 100,000, C = 256 beside their bounds and the
+two products in float32 cuBLAS (one launch each; the categorical ones one
+warm-up and the median of 3).  The counts are set to 0 before its
+dispatcher calls; the tiled pair's calls there are its launches in the
+``kernels`` line's ninth entry, ``glm_categorical_logit_tiled`` (its time,
+bounds and products at (50, 65), the other three shapes beside).  ``kernels_chol`` prints the block
 kernel's ``clock64`` stamps: how its time splits between factor and inverse.
 
 BASELINE configs 3 and 5 as their benches drive them, after the paths above,
@@ -404,6 +411,40 @@ def phase_device():
     return smi
 
 
+def kernel_name(mangled):
+    """``name<args>`` of a mangled kernel: the last component of its
+    (nested) name, then its integer, bool, float and double template
+    arguments."""
+    s, i = mangled, 2
+    if not s.startswith("_Z"):
+        return s
+    nested = s[i] == "N"
+    i += nested
+    names = []
+    while i < len(s) and s[i].isdigit():
+        j = i
+        while s[j].isdigit():
+            j += 1
+        names.append(s[j : j + int(s[i:j])])
+        i = j + int(s[i:j])
+        if not nested:
+            break
+    args = []
+    if i < len(s) and s[i] == "I":
+        i += 1
+        while i < len(s) and s[i] != "E":
+            if s[i] == "L":  # a literal: L<type><value>E
+                j = s.index("E", i)
+                args.append(("true" if s[i + 2 : j] == "1" else "false") if s[i + 1] == "b" else s[i + 2 : j])
+                i = j + 1
+            elif s[i] in "fd":
+                args.append({"f": "float", "d": "double"}[s[i]])
+                i += 1
+            else:
+                break
+    return (names[-1] + (f"<{','.join(args)}>" if args else "")) if names else s
+
+
 def ptxas_report(log):
     """``[kernel, registers, stack bytes, spill store bytes, spill load bytes]``
     for each kernel of one ``nvcc -Xptxas -v`` log."""
@@ -411,10 +452,7 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_][a-z0-9_]*_kernel)(I(?:Li\d+E)+E|I[fd]E)?", m.group(1))
-            args = re.findall(r"Li(\d+)E", k.group(2) or "") if k else []
-            args = args or ([{"IfE": "float", "IdE": "double"}[k.group(2)]] if k and k.group(2) in ("IfE", "IdE") else [])
-            entry = [(k.group(1) + (f"<{','.join(args)}>" if args else "")) if k else m.group(1)]
+            entry = [kernel_name(m.group(1))]
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and entry is not None:
@@ -805,6 +843,7 @@ def phase_main_path(x, y, beta_true, entries):
     require(launches_sampler["bernoulli_logit"] == res.n_grad_calls > 0, (launches_sampler, res.n_grad_calls))
     require(all(v == 0 for v in layout_copies.values()), f"the dispatchers copied x or y on the main path: {layout_copies}")
     require(all(v == 0 for v in launches_fma.values()), f"a float32 kernel ran on the main path: {launches_fma}")
+    require(not any(glm_fused.LAUNCHES_TILED.values()), f"the tiled categorical pair ran on the main path: {glm_fused.LAUNCHES_TILED}")
     require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the main path: {plain_calls}")
     for e in entries:
         family = e["name"][len("glm_fused["):-1]
@@ -1038,6 +1077,14 @@ C1_N, C1_C = 4099, 20  # ragged rows; 20 chains: a ragged second column tile
 C1_FAMILY_D = (282, 1024)
 C1_ORDERED = ((236, 5), (1024, 12))  # (d, k)
 C1_CATEGORICAL = ((50, 65), (50, 200), (400, 5), (212, 41))  # (d, k)
+# More shapes of the tiled categorical pair: a narrow x with K > 64 (one k8
+# step of a slice), D = 320 (six row tiles of [gbeta; galpha] in an instance
+# of seven), D = 700 (x too wide to come whole: the ring carries it, three
+# groups), K = 30 and K = 12 (launch 1's other sweeps); and the four above at
+# N = 100,000 with C = 8 (the float64 plain version's (C, N, K) logits take
+# 1.3 GB at K = 200).
+C1_CATEGORICAL_MORE = ((7, 65), (320, 5), (700, 3), (330, 30), (400, 12))  # (d, k)
+C1_BIG_N, C1_BIG_C = 100_000, 8
 C1_SHAPES = ([(f, d, None) for f in glm_fused.FAMILIES for d in C1_FAMILY_D] + [("ordered", d, k) for d, k in C1_ORDERED]
              + [("categorical", d, k) for d, k in C1_CATEGORICAL])  # (kind, d, k)
 C1_LAYOUT_D, C1_LAYOUT_K = 33, 5
@@ -1094,11 +1141,17 @@ def counter_key(kind):
     return {"ordered": glm_fused.ORDERED, "categorical": glm_fused.CATEGORICAL}.get(kind, kind)
 
 
-def glm_route(kind, n, d, c, k):
+def glm_plan(kind, n, d, c, k):
+    """The wrapper's plan of one GLM kind at this shape (for the categorical
+    one, ``kernel`` says which of its two tensor-core kernels)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if kind == "categorical":
-        return glm_fused.categorical_route(n, d, c, k, sms)["route"]
-    return glm_fused.glm_tile_plan(n, d, c, sms, kcat=k if kind == "ordered" else None)["route"]
+        return glm_fused.categorical_route(n, d, c, k, sms)
+    return glm_fused.glm_tile_plan(n, d, c, sms, kcat=k if kind == "ordered" else None)
+
+
+def glm_route(kind, n, d, c, k):
+    return glm_plan(kind, n, d, c, k)["route"]
 
 
 def dispatch_against_float64(label, kind, y_np, x32, params_np, layout=None):
@@ -1112,7 +1165,8 @@ def dispatch_against_float64(label, kind, y_np, x32, params_np, layout=None):
     c = params_np[0].shape[-1] if kind not in ("categorical",) else params_np[0].shape[0]
     k = params_np[1].shape[0] + 1 if kind == "ordered" else (params_np[0].shape[1] if kind == "categorical" else None)
     key = counter_key(kind)
-    route = glm_route(kind, n, d, c, k)
+    plan = glm_plan(kind, n, d, c, k)
+    route, tiled = plan["route"], plan.get("kernel") == "tiled"
     y = torch.as_tensor(y_np, device="cuda")
     if layout == "int64_y":
         y = y.to(torch.int64)  # an ordered / categorical kernel takes int32, a family's the type of x
@@ -1128,18 +1182,19 @@ def dispatch_against_float64(label, kind, y_np, x32, params_np, layout=None):
         x = x32.mT.contiguous().mT
         require(not x.is_contiguous(), f"{label}: x is contiguous")
     params = [torch.tensor(p, dtype=torch.float32, device="cuda").requires_grad_(True) for p in params_np]
-    before = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA), dict(glm_fused.PLAIN_CALLS), dict(glm_fused.LAYOUT_COPIES))
+    counts = lambda: tuple(dict(t) for t in (glm_fused.LAUNCHES, glm_fused.LAUNCHES_FMA, glm_fused.LAUNCHES_TILED,  # noqa: E731
+                                             glm_fused.PLAIN_CALLS, glm_fused.LAYOUT_COPIES))
+    before = counts()
     val = glm_dispatcher(kind)(y, x, *params)
     grads = torch.autograd.grad(val.sum(), params)
     torch.cuda.synchronize()
-    after = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA), dict(glm_fused.PLAIN_CALLS), dict(glm_fused.LAYOUT_COPIES))
-    tc = route == "tensor_cores"
-    want_tc = dict(before[0], **({key: before[0][key] + 1} if tc else {}))
-    want_fma = dict(before[1], **({} if tc else {key: before[1][key] + 1}))
-    require(after[0] == want_tc and after[1] == want_fma, f"{label}: not one launch of the {route} kernel")
-    require(after[2] == before[2], f"{label}: the plain version ran on a CUDA tensor")
-    require(after[3] == dict(before[3], **{key: before[3][key] + (1 if layout else 0)}),
-            f"{label}: layout copies {after[3]} against {before[3]}")
+    after = counts()
+    counter = 2 if tiled else (0 if route == "tensor_cores" else 1)  # which of LAUNCHES, LAUNCHES_FMA, LAUNCHES_TILED
+    want = [dict(b, **({key: b[key] + 1} if i == counter else {})) for i, b in enumerate(before[:3])]
+    require(list(after[:3]) == want, f"{label}: not one launch of the {route} kernel{' (tiled)' if tiled else ''}")
+    require(after[3] == before[3], f"{label}: the plain version ran on a CUDA tensor")
+    require(after[4] == dict(before[4], **{key: before[4][key] + (1 if layout else 0)}),
+            f"{label}: layout copies {after[4]} against {before[4]}")
     p64 = [torch.tensor(p, dtype=torch.float64, device="cuda").requires_grad_(True) for p in params_np]
     y64 = torch.as_tensor(y_np, device="cuda")
     y64 = y64.to(torch.int32) if kind in ("ordered", "categorical") else y64.to(torch.float64)
@@ -1155,7 +1210,8 @@ def dispatch_against_float64(label, kind, y_np, x32, params_np, layout=None):
             f"{label} {name}: dispatcher disagrees with the float64 plain version: max abs err {float(err.max())}, "
             f"max |want| {float(w.abs().max())}, rtol {rtol}, atol {atol}"))
         errs[name] = float(err.max())
-    return {"route": route, "n": n, "d": d, "c": c, "k": k, "abs_err": errs}
+    return {"route": route, **({"kernel": plan["kernel"]} if kind == "categorical" else {}),
+            "n": n, "d": d, "c": c, "k": k, "abs_err": errs}
 
 
 def wide_bound(kind, n, d, c, k):
@@ -1188,10 +1244,23 @@ def glm_products_library_rows(x, x1, bmat, max_elems=2.5e8):
     return out
 
 
+def median_ms(fn, warmup, reps):
+    """``(median, every rep)``: ``fn`` timed launch by launch with CUDA events
+    after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = [time_ms(fn, warmup=0, reps=1) for _ in range(reps)]
+    return float(np.median(times)), times
+
+
 def time_wide(kind, d, k, x_main):
-    """The kernel of one wide shape at N = 100,000, C = 256 (one launch: the
-    largest take seconds), beside its bound and the two products alone in
-    float32 cuBLAS (timing only)."""
+    """The kernel of one wide shape at N = 100,000, C = 256, beside its bound
+    and the two products alone in float32 cuBLAS (timing only).  The families
+    and the ordered GLM (float32 kernels): one launch each.  The categorical
+    one (the tiled tensor-core pair): one warm-up and the median of 3 calls,
+    the products likewise, its bound that of three TF32 products (the FP32
+    bound beside it)."""
     n, c = N_MAIN, C_MAIN
     gen = torch.Generator(device="cuda").manual_seed(700 + d + (k or 0))
     x = x_main if d == x_main.shape[1] else torch.randn((n, d), generator=gen, device="cuda")
@@ -1209,31 +1278,90 @@ def time_wide(kind, d, k, x_main):
     else:
         fn = lambda: glm_fused.glm_fused_parts(kind, y, x, *params[:2], params[2] if len(params) > 2 else None)  # noqa: E731
         bmat = params[1]
-    require(glm_route(kind, n, d, c, k) == "fma", f"{kind} d{d} k{k}: not the float32 route at N={n}, C={c}")
-    ms = time_ms(fn, warmup=0, reps=1)
     x1 = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
-    library_ms = time_ms(lambda: glm_products_library_rows(x, x1, bmat), warmup=0, reps=1)
-    del x1, bmat
+    products = lambda: glm_products_library_rows(x, x1, bmat)  # noqa: E731
     bound = wide_bound(kind, n, d, c, k)
+    extra = {}
+    if kind == "categorical":
+        plan = glm_plan(kind, n, d, c, k)
+        require(plan["route"] == "tensor_cores" and plan["kernel"] == "tiled", f"categorical d{d} k{k}: not the tiled pair")
+        ms, reps = median_ms(fn, warmup=1, reps=3)
+        library_ms, library_reps = median_ms(products, warmup=1, reps=3)
+        tc = tensor_core_bounds(n, d * k, c, categorical_core_ops(k), bound["flops"], bound["bytes"])
+        extra = {"reps_ms": reps, "products_reps_ms": library_reps, "bound_fp32_ms": bound["bound_ms"],
+                 "bound_tensor_ms": tc["bound_tensor_ms"], "launches_per_call": plan["launches"],
+                 "tf32_tflops": 3.0 * 4.0 * n * d * c * k / (ms * 1e-3) / 1e12,
+                 "plan": {key: plan[key] for key in ("mt", "groups", "cpb", "column_tiles", "whole_x", "stages",
+                                                     "row_blocks_lse", "row_blocks")}}
+        bound = {**bound, "bound_ms": tc["bound_ms"], "bound_by": tc["bound_by"]}
+    else:
+        require(glm_route(kind, n, d, c, k) == "fma", f"{kind} d{d} k{k}: not the float32 route at N={n}, C={c}")
+        ms = time_ms(fn, warmup=0, reps=1)
+        library_ms = time_ms(products, warmup=0, reps=1)
+    del x1, bmat
     require(bound["bound_ms"] <= ms, f"{kind} d{d} k{k}: {ms} ms beats its bound {bound['bound_ms']} ms")
     return {"kind": kind, "n": n, "d": d, "c": c, "k": k, "ms": ms, **bound,
-            "fp32_tflops": bound["flops"] / (ms * 1e-3) / 1e12, "products_library_ms": library_ms}
+            "fp32_tflops": bound["flops"] / (ms * 1e-3) / 1e12, "products_library_ms": library_ms, **extra}
+
+
+def categorical_jvp(d, k):
+    """``torch.func.jvp`` through ``CategoricalGlmFused`` at a shape of the
+    tiled pair (N = 4,099, C = 20), tangents on alpha and beta: one call of
+    the pair and no plain call for the primal and its tangent; the tangent
+    against the plain version's ``jvp`` in float64, each partial's gate
+    (rtol 3e-4, ``grad_atol``) times its tangent."""
+    n, c = C1_N, C1_C
+    y, xn, *params = categorical_inputs(n, d, c, k, seed=930, scale=0.1)
+    tans = [tangent_like(p, 931 + j, 0.1) for j, p in enumerate(params)]
+    yt, x32, *p32 = with_y(y, [xn, *params], torch.float32)
+    _, x64, *p64 = with_y(y, [xn, *params], torch.float64)
+    t32, t64 = on_gpu(tans, torch.float32), on_gpu(tans, torch.float64)
+    kernel = lambda a, b: glm_fused.CategoricalGlmFused.apply(yt, x32, a, b)[0]  # noqa: E731
+    plain = lambda a, b: glm_fused.categorical_logit_glm_parts_reference(yt, x64, a, b)[0]  # noqa: E731
+    (_, got), launches, plain_calls = count_launches(lambda: torch.func.jvp(kernel, tuple(p32), tuple(t32)))
+    require(launches == {f"{glm_fused.CATEGORICAL}_tiled": 1} and not plain_calls,
+            f"categorical jvp d{d} k{k}: launches {launches}, plain calls {plain_calls}")
+    want = torch.func.jvp(plain, tuple(p64), tuple(t64))[1]
+    grad_atol = ragged_atol(n)
+    parts = glm_fused.categorical_logit_glm_parts_reference(yt, x64, *p64)[1:]
+    bound = sum((t * (grad_atol + JVP_RTOL * g.abs())).abs().flatten(1).sum(1) for t, g in zip(t64, parts)) + grad_atol
+    err = (got.double() - want).abs()
+    require(bool(torch.isfinite(got).all()) and bool((err <= bound).all()),
+            f"categorical jvp d{d} k{k}: max abs err {float(err.max())}, worst err / bound {float((err / bound).max())}")
+    return {"d": d, "k": k, "n": n, "c": c, "launches": launches, "max_abs_err": float(err.max()),
+            "max_err_over_bound": float((err / bound).max())}
 
 
 def phase_wide(x_main):
     """The inputs the dispatchers once refused, through them on the card, each
-    against the float64 plain version (N = 4,099, C = 20); then the wide
-    shapes timed at N = 100,000, C = 256."""
+    against the float64 plain version (N = 4,099, C = 20; the categorical
+    shapes also at N = 100,000, C = 8, and (7, 65), (320, 5)), a ``jvp``
+    through the tiled categorical pair; then the wide shapes timed at N =
+    100,000, C = 256.  The counts are set to 0 just before the dispatcher
+    calls and read just after (the tiled pair's launches of its entry)."""
     x_full = torch.tensor(x_main, device="cuda")
     checks, timings = {}, []
-    for i, (kind, d, k) in enumerate(C1_SHAPES):
+    glm_fused.reset_counts()
+    cat_shapes = [(C1_N, C1_C, d, k) for d, k in C1_CATEGORICAL + C1_CATEGORICAL_MORE] + [
+        (C1_BIG_N, C1_BIG_C, d, k) for d, k in C1_CATEGORICAL]
+    cases = [(kind, C1_N, C1_C, d, k) for kind, d, k in C1_SHAPES if kind != "categorical"] + [
+        ("categorical", n, c, d, k) for n, c, d, k in cat_shapes]
+    for i, (kind, n, c, d, k) in enumerate(cases):
         rng = np.random.default_rng(800 + i)
-        x = torch.tensor(rng.normal(size=(C1_N, d)).astype(np.float32), device="cuda")
-        y = glm_y(kind, C1_N, k, seed=810 + i)
-        _, params = glm_params(kind, d, C1_C, k, seed=820 + i, scale=min(0.1, 1.0 / math.sqrt(d)))
-        label = f"{kind}_d{d}" + (f"_k{k}" if k else "")
+        x = torch.tensor(rng.normal(size=(n, d)).astype(np.float32), device="cuda")
+        y = glm_y(kind, n, k, seed=810 + i)
+        _, params = glm_params(kind, d, c, k, seed=820 + i, scale=min(0.1, 1.0 / math.sqrt(d)))
+        label = f"{kind}_d{d}" + (f"_k{k}" if k else "") + (f"_n{n}_c{c}" if (n, c) != (C1_N, C1_C) else "")
         checks[label] = dispatch_against_float64(label, kind, y, x, params)
-        require(checks[label]["route"] == "fma", f"{label}: a wide shape must take the float32 route")
+        if kind == "categorical":
+            require(checks[label].get("kernel") == "tiled", f"{label}: a wide categorical shape must take the tiled tensor-core pair")
+        else:
+            require(checks[label]["route"] == "fma", f"{label}: a wide shape must take the float32 route")
+        del x
+    tiled_launches = glm_fused.LAUNCHES_TILED[glm_fused.CATEGORICAL]
+    require(tiled_launches == len(cat_shapes), f"the tiled pair: {tiled_launches} calls for {len(cat_shapes)}")
+    jvp = categorical_jvp(*C1_CATEGORICAL[0])  # its counts from 0 (count_launches): one call of the pair
+    tiled_launches += jvp["launches"].get(f"{glm_fused.CATEGORICAL}_tiled", 0)
     for j, kind in enumerate(glm_fused.FAMILIES[:1] + ("ordered", "categorical")):
         k = C1_LAYOUT_K if kind != "bernoulli_logit" else None
         rng = np.random.default_rng(900 + j)
@@ -1243,13 +1371,56 @@ def phase_wide(x_main):
         for layout in C1_LAYOUTS:
             label = f"{kind}_{layout}"
             checks[label] = dispatch_against_float64(label, kind, y, x, params, layout=layout)
-            require(checks[label]["route"] == "tensor_cores", f"{label}: the layout inputs must take the tensor-core route")
+            require(checks[label]["route"] == "tensor_cores" and checks[label].get("kernel", "single") == "single",
+                    f"{label}: the layout inputs must take the first tensor-core route")
     for kind, d, k in C1_SHAPES:
         timings.append(time_wide(kind, d, k, x_full))
         torch.cuda.empty_cache()
-    emit("wide", inputs=checks, timed=timings,
+    require(glm_fused.LAUNCHES_FMA[glm_fused.CATEGORICAL] == 0, "a float32 categorical launch")
+    tiled_checks = {lab: v for lab, v in checks.items() if v.get("kernel") == "tiled"}
+    tiled_entry = tiled_categorical_entry(x_full, tiled_launches, tiled_checks, jvp,
+                                          [t for t in timings if t["kind"] == "categorical"])
+    emit("wide", inputs=checks, timed=timings, categorical_jvp=jvp, tiled_launches=tiled_launches,
          tolerance={"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": "1e-3 * max(1, N / 3000)"})
-    return checks, timings
+    return checks, timings, tiled_entry
+
+
+def tiled_categorical_entry(x_full, launches, checks, jvp, timed):
+    """The ``kernels`` line's entry of the tiled categorical pair: its time,
+    bounds and products at (D, K) = (50, 65), N = 100,000, C = 256, the
+    plain version's time there (one call), the other timed shapes beside,
+    its launches (calls of the pair) from the ``wide`` dispatcher calls, and
+    the largest error of those calls against the float64 plain version."""
+    main = next(t for t in timed if (t["d"], t["k"]) == C1_CATEGORICAL[0])
+    n, d, c, k = main["n"], main["d"], main["c"], main["k"]
+    y = torch.as_tensor(glm_y("categorical", n, k, seed=710 + d), device="cuda").to(torch.int32)
+    _, params = glm_params("categorical", d, c, k, seed=720 + d, scale=min(0.1, 1.0 / math.sqrt(d)))
+    params = [torch.tensor(p, device="cuda") for p in params]
+    plain_ms = time_ms(lambda: glm_fused.categorical_logit_glm_parts_reference(y, x_full, *params), warmup=0, reps=1)
+    del params
+    torch.cuda.empty_cache()
+    return {
+        "name": "glm_categorical_logit_tiled",
+        "route": "cuda",
+        "source": "math_tpu_torch/csrc/glm_categorical.cu",
+        "replaces": "math_tpu/ops/pallas_glm.py:650",
+        "launches": launches,
+        "launches_per_call": main["launches_per_call"],
+        "max_abs_err": max(max(v["abs_err"].values()) for v in checks.values()),
+        "ms": main["ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no one PyTorch call computes this function with its gradients
+        "shape": {"n": n, "d": d, "c": c, "k": k},
+        "bound_fp32_ms": main["bound_fp32_ms"],
+        "products_library_ms": main["products_library_ms"],
+        "timed": [{key: t[key] for key in ("d", "k", "ms", "reps_ms", "bound_ms", "bound_fp32_ms", "products_library_ms",
+                                           "products_reps_ms", "launches_per_call", "tf32_tflops", "plan")} for t in timed],
+        "abs_err": {lab: v["abs_err"] for lab, v in checks.items()},
+        "jvp": jvp,
+        "tolerance": {"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": "1e-3 * max(1, N / 3000)"},
+    }
 
 
 def ordinal_data(x, seed=1):
@@ -1427,6 +1598,7 @@ def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
     require(all(v == 0 for v in layout_copies.values()), f"the dispatchers copied x or y on the {label}: {layout_copies}")
     require(all(v == 0 for f, v in launches.items() if f != family), f"another kernel ran: {launches}")
     require(all(v == 0 for v in launches_fma.values()), f"a float32 kernel ran on the {label}: {launches_fma}")
+    require(not any(glm_fused.LAUNCHES_TILED.values()), f"the tiled categorical pair ran on the {label}: {glm_fused.LAUNCHES_TILED}")
     require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the {label}: {plain_calls}")
     entry["launches"] = launches[family]
     z_final = res.position[:8, -1, :].contiguous()
@@ -1458,8 +1630,8 @@ def only_kernel(label, family, grad_calls):
     launches = dict(glm_fused.LAUNCHES)
     require(launches[family] == grad_calls > 0, f"{label}: {launches[family]} launches for {grad_calls} gradient calls")
     require(all(v == 0 for f, v in launches.items() if f != family), f"{label}: another kernel ran: {launches}")
-    for name, counts in (("float32 kernel", glm_fused.LAUNCHES_FMA), ("plain version", glm_fused.PLAIN_CALLS),
-                         ("layout copy", glm_fused.LAYOUT_COPIES)):
+    for name, counts in (("float32 kernel", glm_fused.LAUNCHES_FMA), ("tiled categorical pair", glm_fused.LAUNCHES_TILED),
+                         ("plain version", glm_fused.PLAIN_CALLS), ("layout copy", glm_fused.LAYOUT_COPIES)):
         require(all(v == 0 for v in counts.values()), f"{label}: a {name} ran: {dict(counts)}")
     return launches[family]
 
@@ -3200,6 +3372,7 @@ def phase_censored_nb_path(x):
     res, wall, model, args, data, lentz = drive_censored_nb(x)
     launches = dict(glm_fused.LAUNCHES)
     others = {**chol_blocked.LAUNCHES, **lv_rk4.LAUNCHES, **glm_fused.LAUNCHES_FMA,
+              **{f"{f}_tiled": n for f, n in glm_fused.LAUNCHES_TILED.items()},
               **{f: n for f, n in launches.items() if f != NB_FAMILY}}
     plain, copies = sum(glm_fused.PLAIN_CALLS.values()), sum(glm_fused.LAYOUT_COPIES.values())
     require(launches[NB_FAMILY] == res.n_grad_calls > 0,
@@ -3592,7 +3765,8 @@ def count_launches(fn):
     out = fn()
     torch.cuda.synchronize()
     launches = {**{k: v for k, v in glm_fused.LAUNCHES.items() if v}, **{k: v for k, v in chol_blocked.LAUNCHES.items() if v},
-                **{f"{k}_fma": v for k, v in glm_fused.LAUNCHES_FMA.items() if v}}
+                **{f"{k}_fma": v for k, v in glm_fused.LAUNCHES_FMA.items() if v},
+                **{f"{k}_tiled": v for k, v in glm_fused.LAUNCHES_TILED.items() if v}}
     plain = {**{k: v for k, v in glm_fused.PLAIN_CALLS.items() if v}, **{k: v for k, v in chol_blocked.PLAIN_CALLS.items() if v}}
     return out, launches, plain
 
@@ -4006,7 +4180,7 @@ def main():
     chol_entry = phase_kernels_chol(gp_regression.synthetic_data(N_GP, seed=0)[0])
     ord_entry, cat_entry = phase_kernels_ordered_categorical(x)
     phase_kernels_wide()
-    phase_wide(x)
+    _, _, tiled_entry = phase_wide(x)
     lv_entry = phase_kernels_lv()
     chol_entry["small_shapes"] = phase_kernels_chol_small()
     worker = start_worker([os.path.abspath(__file__), "--worker"] + (["--profile"] if profiling else []))
@@ -4038,8 +4212,10 @@ def main():
     nb_entry = next(e for e in entries if e["name"] == f"glm_fused[{NB_FAMILY}]")
     nb_entry["launches"] += result["nb_launches"]
     nb_entry["censored_nb_path"] = {"launches": result["nb_launches"], **result["nb_at_path"]}
-    require(len(entries) == 8, f"{len(entries)} kernel entries")
+    entries.append(tiled_entry)
+    require(len(entries) == 9, f"{len(entries)} kernel entries")
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
+    emit("script", seconds=time.perf_counter() - START, limit_s=1200)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

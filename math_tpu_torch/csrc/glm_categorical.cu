@@ -1,5 +1,10 @@
 // Categorical-logit GLM log-prob + parameter gradients for a batch of chains,
-// with both products on Hopper's tensor cores in 3xTF32.
+// with both products on Hopper's tensor cores in 3xTF32, at every shape:
+// glm_categorical_kernel (one launch and its reduction) where a chain's
+// classes fit one column tile (K <= 64) and D its instances; the tiled pair
+// categorical_lse_kernel / categorical_grad_kernel<MT> (further down, with a
+// note of its own) for every other shape.  The wrapper's categorical_route
+// (ops/glm_fused.py) picks by shape alone.
 //
 // Replaces the TPU kernel math_tpu/ops/pallas_glm.py::_categorical_kernel
 // (launched by _categorical_forward).  y (N,) int32 in 1..K, x (N, D)
@@ -446,6 +451,714 @@ glm_categorical_kernel(const int* __restrict__ y, const float* __restrict__ x,
 // the same set.
 #define GLM_CATEGORICAL_INSTANCES(X) X(2, 1) X(2, 2) X(2, 3) X(2, 4) X(1, 4) X(1, 5)
 
+// ===========================================================================
+// The tiled kernel pair: every shape the kernel above does not take
+// ===========================================================================
+//
+// Replaces math_tpu/ops/pallas_glm.py::_categorical_kernel at the shapes
+// glm_categorical_kernel cannot hold: more than 64 classes (one chain's
+// classes no longer share one column tile), or a D past its instances (beta
+// staged whole no longer fits shared memory, [gbeta; galpha] no longer fits
+// its registers).  Same function, same partials and tolerances, any N, D, C, K.
+//
+// What bounds it: the two products, 3 x 4*N*D*C*K flops in 3xTF32 at 495
+// TFLOP/s (2.02 ms at N = 100,000, D = 50, C = 256, K = 65; 6.21 at K = 200;
+// 1.24 at D = 400, K = 5; 5.39 at D = 212, K = 41).  The design below does
+// product 1 twice, and once more for every further group of D rows, so its
+// own work is (2 + G) / 2 of that count; and the N*C*K exponentials twice.
+//
+// Design.  The softmax needs the log-sum-exp of all K logits of a (row, chain)
+// before any theta' exists, so the work is split over launches:
+//  * Columns are the flat (chain, class) columns of the (D, C*K) matrix beta,
+//    in tiles of NC = 80, one n40 wgmma slice per warpgroup as above.  A tile
+//    holds the classes of whichever chains fall in it, so no column is idle
+//    but at the end of C*K (a chain may span tiles; a tile may hold parts of
+//    several chains).
+//  * Launch 0, categorical_pack_kernel, lays the operands out as the ring
+//    takes them: beta split once into hi / lo, K-major, per (column tile,
+//    slice of DS = 32 features), 20 KB each, for launch 2's tiles and again
+//    for launch 1's windows; x per (64-row tile, slice), rows XS = 36 floats
+//    apart, zeros past N and D, 9 KB each.  A slice is then contiguous (x's
+//    rows of a slice are not: D apart).
+//  * Product 1 takes D a slice at a time, each slice's 3xTF32 product from
+//    zero and added to eta by IEEE adds.  Beta's slices (and x's, where x
+//    does not come whole) flow through a ring of stages filled by 1-D bulk
+//    copies that complete on an mbarrier; thread 0 asks for the stage the
+//    last slice freed while this slice's products run, and the ring runs on
+//    across a block's windows and row tiles.  No beta tile of whole D is
+//    staged, so shared memory does not grow with D.
+//  * Launch 1, categorical_lse_kernel: a block owns cpb <= 16 whole chains
+//    (the fewest idle columns in its windows of 80) and two blocks share an
+//    SM.  Per row tile and window: eta + alpha to shared memory, then per
+//    (row, chain segment) the maximum and sum of exponentials (a lane's
+//    logits loaded at once, tree reductions; four lanes a segment from K = 16
+//    up), merged into the running (max, sum) of the (row, chain): an online
+//    log-sum-exp.  At the row tile's end it writes lse (C, N) and adds lp =
+//    eta_y - lse per chain (rows in order in float, the tiles in double) into
+//    the block's logp partial.  A column's eta is the same sum in launch 2,
+//    bit for bit: the tile around it changes no product's order.
+//  * Launch 2, categorical_grad_kernel<MT, WHOLE_X>: grid (column tile, row
+//    block, D group).  Per row tile: x whole (WHOLE_X: all its packed slices
+//    in one bulk copy, where shared memory holds them) or the group's window,
+//    product 1 again, theta' = onehot(y) - exp(eta + alpha - lse) straight
+//    from the accumulator registers, split hi/lo into the K-major theta'
+//    tile, then product 2, [x, 1]^T @ theta', over the group's 64*MT rows of
+//    [gbeta; galpha], each tile's product from zero and added to the block's
+//    sums in registers by IEEE adds.  Groups of up to 7 row tiles (4 where a
+//    window of 14 slices does not fit); MT the least instance that covers a
+//    group; two blocks share an SM at MT = 1.
+//  * Sums are deterministic: each block writes one partial (logp from launch
+//    1, galpha and gbeta from launch 2), and reduce_partials_kernel adds each
+//    set in block order in double.  A call makes five launches.
+//
+// Where it departs from the plan it was built to: the operands are packed
+// by a launch of their own (x is read once more, beta is split once a call
+// rather than once a block), so that every slice is one or two bulk copies;
+// launch 1 owns whole chains rather than tiling columns, so the running
+// log-sum-exp never leaves shared memory; the row blocks of the two launches
+// are chosen apart (launch 1 has few blocks per row block, launch 2 many), so
+// the logp and gradient partials are reduced by two launches.  What its
+// clock64 stamps showed (tools/phase_clocks.py --tiled, an H100 SXM at 700
+// W): a first version that staged each slice through registers behind a
+// block barrier spent most of its time waiting on loads, on one block an SM;
+// in this one, at N = 100,000, D = 50, C = 256, K = 65, launch 1's products
+// take 35% of its clocks, the sweep 37%, the window's set-up 10% and the
+// waits and barriers 14%; launch 2's products 54%, theta' 22%: the
+// exponentials and the block's barriers on the CUDA cores, beside the
+// tensor cores, set the time (at D = 212 and 400 the products take 55-78%).
+//
+// Shared memory, bytes, each part rounded up to 128: launch 1 the ring (2 *
+// (20,480 + 9,216)), eta (64 * 84 * 4), two tables of chain segments, the
+// running max, sum and picked logit (3 * 64 * cpb * 4), the logp sums (cpb *
+// 8), alpha, y, the barriers; launch 2 the ring (2-4 stages of beta, and of
+// x unless WHOLE_X), the theta' tile (2 * 80 * 64 * 4), x (ns or 2*MT packed
+// slices), the tile's lse (64 * nch * 4), y, the column table, the barriers.
+// lse_layout_of and grad_layout_of below, mirrored by the wrapper's plan.
+
+namespace tiled {
+
+constexpr int NC = 80;        // columns of a tile: an n40 slice per warpgroup
+constexpr int THREADS = 256;  // two warpgroups
+constexpr int DS = 32;        // features of a slice of product 1
+constexpr int XS = DS + 4;    // row stride (floats) of a packed x slice: load_a's reads fall on distinct banks
+constexpr int EB = NC + 4;    // row stride (floats) of launch 1's eta tile: the sweep's reads fall on distinct banks
+constexpr int LSE_STAGES = 2;   // launch 1's ring of slices: two blocks share an SM
+constexpr int MAX_GRAD_STAGES = 4;  // launch 2's, as its plan chooses
+constexpr int MAX_CPB = 16;     // chains of a block of launch 1 at most
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory one block may take on sm_90
+constexpr uint32_t BETA_SLICE_BYTES = 2 * NC * DS * 4;  // beta hi, then lo, K-major (NC x DS)
+constexpr uint32_t X_SLICE_BYTES = TM * XS * 4;         // x (TM x XS), row-major
+constexpr size_t STAGE_BYTES = (size_t)BETA_SLICE_BYTES + X_SLICE_BYTES;
+static_assert(BETA_SLICE_BYTES % 128 == 0 && X_SLICE_BYTES % 128 == 0, "stages and slices stay 128-byte aligned");
+
+static_assert(STAGE_BYTES % 128 == 0, "stages stay 128-byte aligned");
+
+// The most chains a tile of NC columns touches.
+__host__ __device__ inline int chains_per_tile(int kcls, int c) {
+    const int most = (NC - 1) / kcls + 2;
+    return c < most ? c : most;
+}
+
+struct LseLayout {
+    size_t ring, eb, seg, mrun, srun, pick, lpacc, alpha, ys, bars, total;
+};
+
+__host__ __device__ inline LseLayout lse_layout_of(int cpb) {
+    LseLayout L;
+    size_t at = 0;
+    L.ring = at;  at += LSE_STAGES * STAGE_BYTES;
+    L.eb = at;    at += up128((size_t)TM * EB * 4);
+    L.seg = at;   at += up128((size_t)2 * (NC + 1) * 16);
+    L.mrun = at;  at += up128((size_t)TM * cpb * 4);
+    L.srun = at;  at += up128((size_t)TM * cpb * 4);
+    L.pick = at;  at += up128((size_t)TM * cpb * 4);
+    L.lpacc = at; at += up128((size_t)cpb * 8);
+    L.alpha = at; at += up128((size_t)NC * 4);
+    L.ys = at;    at += up128((size_t)TM * 4);
+    L.bars = at;  at += up128((size_t)LSE_STAGES * 8);
+    L.total = at;
+    return L;
+}
+
+struct GradLayout {
+    size_t ring, th, xw, lse, ys, col, cb, bars, total;
+};
+
+// whole_x: the ring carries beta alone and x comes whole a row tile (all ns
+// slices); else the ring carries both and the window holds the group's 2*mt.
+__host__ __device__ inline GradLayout grad_layout_of(int mt, int nch, int stages, bool whole_x, int ns) {
+    GradLayout L;
+    size_t at = 0;
+    L.ring = at;  at += (size_t)stages * (whole_x ? BETA_SLICE_BYTES : STAGE_BYTES);
+    L.th = at;    at += up128((size_t)2 * NC * TM * 4);
+    L.xw = at;    at += up128((size_t)(whole_x ? ns : 2 * mt) * X_SLICE_BYTES);
+    L.lse = at;   at += up128((size_t)TM * nch * 4);
+    L.ys = at;    at += up128((size_t)TM * 4);
+    L.col = at;   at += up128((size_t)NC * 16);
+    L.cb = at;    at += up128((size_t)NC * 8);
+    L.bars = at;  at += up128((size_t)(MAX_GRAD_STAGES + 1) * 8);
+    L.total = at;
+    return L;
+}
+
+// --- cp.async: 4 bytes global -> shared, zeros where src_bytes is 0 ---------
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// One stage of packed beta: beta's hi then lo parts of the 80 columns q0 ..
+// q0+79 (those before qend), features 32s .. 32s+31, in the K-major
+// core-matrix layout of tf32x3.cuh, zeros past qend and D; e is the float.
+__device__ __forceinline__ float packed_beta(const float* __restrict__ beta, long long q0, long long qend, int s, int e,
+                                             int d, int kcls) {
+    const int idx = e % (NC * DS);  // kmajor_index(j, f - 32s, DS)
+    const int w = idx & 31;
+    const long long q = q0 + 8 * (idx >> 8) + (w >> 2);
+    const int f = s * DS + 4 * ((idx >> 5) & 7) + (w & 3);
+    float v = 0.0f;
+    if (q < qend && f < d) {
+        const long long cc = q / kcls;
+        v = beta[(cc * d + f) * kcls + (q - cc * kcls)];
+    }
+    uint32_t h, l;
+    split(v, h, l);
+    return __uint_as_float(e < NC * DS ? h : l);
+}
+
+// Launch 0.  pbeta2: launch 2's stages, (column tile t, slice s) at t * ns +
+// s, the columns 80t .. of the flat (chain, class) order.  pbeta1: launch 1's,
+// (chain group g, window w, slice s) at (g * nwin1 + w) * ns + s, the columns
+// 80w .. of group g's cpb chains.  px: (row tile, slice), rows XS floats
+// apart, zeros past N, D and the slice.  A stage of beta is 5,120 floats, of
+// x 2,304.
+__global__ void __launch_bounds__(THREADS)
+categorical_pack_kernel(const float* __restrict__ x, const float* __restrict__ beta, int n, int d, int c, int kcls,
+                        int cpb, float* __restrict__ pbeta2, float* __restrict__ pbeta1, float* __restrict__ px) {
+    const int ns = (d + DS - 1) / DS;
+    const long long ncols = (long long)c * kcls;
+    const int nwin1 = (cpb * kcls + NC - 1) / NC;
+    const long long nb2 = (ncols + NC - 1) / NC * ns * (2 * NC * DS);
+    const long long nb1 = (long long)((c + cpb - 1) / cpb) * nwin1 * ns * (2 * NC * DS);
+    const long long nx = (long long)((n + TM - 1) / TM) * ns * (TM * XS);
+    for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < nb2 + nb1 + nx; i += (long long)gridDim.x * THREADS) {
+        if (i < nb2) {
+            const long long stage = i / (2 * NC * DS);
+            const long long t = stage / ns;
+            pbeta2[i] = packed_beta(beta, t * NC, ncols, (int)(stage - t * ns), (int)(i - stage * (2 * NC * DS)), d, kcls);
+        } else if (i < nb2 + nb1) {
+            const long long e = i - nb2;
+            const long long stage = e / (2 * NC * DS);
+            const long long v = stage / ns;
+            const long long g = v / nwin1;
+            const long long q0 = g * cpb * kcls + (v - g * nwin1) * NC;
+            const long long qend = min((g + 1) * cpb, (long long)c) * kcls;
+            pbeta1[e] = packed_beta(beta, q0, qend, (int)(stage - v * ns), (int)(e - stage * (2 * NC * DS)), d, kcls);
+        } else {
+            const long long e = i - nb2 - nb1;
+            const long long stage = e / (TM * XS);
+            const int w = (int)(e - stage * (TM * XS));
+            const long long rt = stage / ns;
+            const int s = (int)(stage - rt * ns);
+            const int r = w / XS;
+            const int kk = w - r * XS;
+            const long long row = rt * TM + r;
+            const int f = s * DS + kk;
+            px[e] = (row < n && kk < DS && f < d) ? x[row * d + f] : 0.0f;
+        }
+    }
+}
+
+// Thread 0: packed beta stage vb, and packed x stage vx unless px is null,
+// into the ring stage at dst, completing on bar.  No proxy fence: a stage is
+// only ever written by these copies, and its readers (wgmma, and the loads
+// of the A fragments) are done with it at the block barrier before.
+__device__ __forceinline__ void request_slice(unsigned char* dst, uint64_t* bar, const float* pbeta, const float* px,
+                                              long long vb, long long vx) {
+    mbar_expect_bytes(bar, BETA_SLICE_BYTES + (px ? X_SLICE_BYTES : 0));
+    bulk_copy(dst, pbeta + vb * (2 * NC * DS), BETA_SLICE_BYTES, bar);
+    if (px) bulk_copy(dst + BETA_SLICE_BYTES, px + vx * (TM * XS), X_SLICE_BYTES, bar);
+}
+
+// A consumer's place in a ring of stages: the stage and its barrier's parity.
+struct RingPlace {
+    int stages, st = 0;
+    uint32_t parity = 0;
+    __device__ __forceinline__ explicit RingPlace(int s) : stages(s) {}
+    __device__ __forceinline__ void next() {
+        if (++st == stages) {
+            st = 0;
+            parity ^= 1u;
+        }
+    }
+};
+
+// Launch 1's sweep of a window: per (row, chain segment) the maximum and the
+// sum of exponentials of its logits in eb (LANES threads a segment, joined
+// by shuffles), the logit of y where the segment holds it, merged into the
+// (chain, row)'s running sums.  The arrays are apart (__restrict__): a
+// round's loads need not wait for the last round's stores.  exp by ex2.approx (__expf): each term is in
+// (0, 1], so its error is ~1e-7 of the sum, far inside logp's rtol 2e-5.  seg[sg] = (first column, end column, chain
+// from the group's first, the chain's class 0 column), window-relative.
+// v[0] op v[1] op ... op v[N-1] as a tree, pairs of neighbours first (depth
+// ceil(log2 N) rather than N - 1).
+template <int N, typename Op>
+__device__ __forceinline__ float tree_reduce(const float (&v)[N], Op op) {
+    float u[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) u[q] = v[q];
+#pragma unroll
+    for (int w = 1; w < N; w *= 2) {
+#pragma unroll
+        for (int q = 0; q + w < N; q += 2 * w) u[q] = op(u[q], u[q + w]);
+    }
+    return u[0];
+}
+
+// MAXE: a lane's logits at most, all loaded at once, predicated (a segment
+// holds at most min(K, NC) columns).
+template <int LANES, int MAXE>
+__device__ __forceinline__ void sweep(const float* __restrict__ eb, const int4* __restrict__ seg, int nseg,
+                                      const int* __restrict__ ys, int kcls, float* __restrict__ mrun,
+                                      float* __restrict__ srun, float* __restrict__ pick) {
+    const int ntask = TM * nseg;
+    for (int i0 = 0; i0 < ntask * LANES; i0 += THREADS) {
+        const int i = i0 + threadIdx.x;
+        const int task = i / LANES;
+        const int sub = i % LANES;
+        const bool live = task < ntask;
+        const int r = task % TM;
+        const int4 sg = seg[live ? task / TM : 0];
+        const int lo = live ? sg.x : 0;
+        const int hi = live ? sg.y : 0;
+        float v[MAXE];
+#pragma unroll
+        for (int q = 0; q < MAXE; ++q) {
+            const int j = lo + sub + q * LANES;
+            v[q] = j < hi ? eb[r * EB + j] : -INFINITY;
+        }
+        float m = tree_reduce<MAXE>(v, [](float a, float b) { return fmaxf(a, b); });
+        if (LANES == 4) {
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        }
+#pragma unroll
+        for (int q = 0; q < MAXE; ++q) v[q] = __expf(v[q] - m);  // exp(-inf - m) = 0 past the segment
+        float sum = tree_reduce<MAXE>(v, [](float a, float b) { return a + b; });
+        if (LANES == 4) {
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        }
+        if (live && sub == 0) {
+            const int st = sg.z * TM + r;
+            const int pc = sg.w + min(max(ys[r], 1), kcls) - 1;
+            if (pc >= lo && pc < hi) pick[st] = eb[r * EB + pc];
+            const float m_old = mrun[st];
+            const float m_new = fmaxf(m_old, m);
+            srun[st] = srun[st] * __expf(m_old - m_new) + sum * __expf(m - m_new);
+            mrun[st] = m_new;
+        }
+    }
+}
+
+// acc += A (64 x 8*KS from k8 step k0 on, fragments by value(r, k)) @ B (the
+// n40 slice at the descriptors): the fragments of every step are loaded
+// first, then the 3*KS products go out as one commit group, with nothing to
+// wait for between them.  The caller waits (wgmma_wait_all) before reading
+// acc or letting ah / al go.
+template <int KS, typename Value>
+__device__ __forceinline__ void mma_steps(float (&acc)[20], uint32_t (&ah)[KS][4], uint32_t (&al)[KS][4], int row, int t,
+                                          int k0, Value value, uint64_t desc_hi, uint64_t desc_lo) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) load_a(ah[ks], al[ks], row, 8 * (k0 + ks) + t, value);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+        mma3_n40k8(acc, ah[ks], al[ks], desc_hi + (k0 + ks) * desc_k8_step(), desc_lo + (k0 + ks) * desc_k8_step());
+    }
+    wgmma_commit();
+}
+
+// eta += the product of a slice (its DS / 8 k8 steps; packed zeros past D):
+// the beta stage at bhi (hi, then lo), the x slice at xs, for this thread's
+// 20 accumulator entries of its warpgroup's n40 slice: from zero, added by
+// IEEE adds.  Two batches of two k8 steps: 16 registers of fragments, so a
+// thread of launch 2 at MT = 1 fits 128 registers without spills.
+// meanwhile() runs while the first batch is in flight.
+template <typename Meanwhile>
+__device__ __forceinline__ void slice_product(float (&eta)[20], const float* bhi, const float* xs, Meanwhile meanwhile) {
+    const int tid = threadIdx.x;
+    const int row_a = 16 * ((tid >> 5) & 3) + ((tid & 31) >> 2);
+    const int slice = tid >> 7;
+    auto xval = [xs](int r, int k) { return xs[r * XS + k]; };
+    float acc[20];
+#pragma unroll
+    for (int e = 0; e < 20; ++e) acc[e] = 0.0f;
+    uint32_t ah[2][4], al[2][4];
+    mma_steps<2>(acc, ah, al, row_a, tid & 3, 0, xval, kmajor_desc(bhi, DS) + slice * desc_n40_step(DS),
+                 kmajor_desc(bhi + NC * DS, DS) + slice * desc_n40_step(DS));
+    meanwhile();
+    wgmma_wait_all();
+    mma_steps<2>(acc, ah, al, row_a, tid & 3, 2, xval, kmajor_desc(bhi, DS) + slice * desc_n40_step(DS),
+                 kmajor_desc(bhi + NC * DS, DS) + slice * desc_n40_step(DS));
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int e = 0; e < 20; ++e) eta[e] += acc[e];
+}
+
+// Launch 1.  grid (chain groups of cpb chains, row blocks).  lse (C, N);
+// partials (row blocks, C): the logp of the block's chains.  Two blocks
+// share an SM (at most 128 registers a thread).
+__global__ void __launch_bounds__(THREADS, 2)
+categorical_lse_kernel(const int* __restrict__ y, const float* __restrict__ alpha, const float* __restrict__ pbeta1,
+                       const float* __restrict__ px, int n, int d, int c, int kcls, int cpb,
+                       float* __restrict__ lse, float* __restrict__ partials) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const LseLayout L = lse_layout_of(cpb);
+    unsigned char* ring = smem + L.ring;
+    float* eb = reinterpret_cast<float*>(smem + L.eb);          // (TM, EB): eta + alpha of a window, row-major
+    int4* segs = reinterpret_cast<int4*>(smem + L.seg);         // chain segments of a window, by window parity
+    float* mrun = reinterpret_cast<float*>(smem + L.mrun);      // (cpb, TM): running maximum of a (chain, row)
+    float* srun = reinterpret_cast<float*>(smem + L.srun);      //            running sum of exp(eta - max)
+    float* pick = reinterpret_cast<float*>(smem + L.pick);      //            the logit of y, then lp
+    double* lpacc = reinterpret_cast<double*>(smem + L.lpacc);  // cpb: the block's logp sums
+    float* alpha_s = reinterpret_cast<float*>(smem + L.alpha);  // NC: alpha of the window's columns
+    int* ys = reinterpret_cast<int*>(smem + L.ys);              // TM: y of the row tile
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int t = lane & 3;
+    const int slice = tid >> 7;
+    const int row_a = 16 * (warp & 3) + (lane >> 2);
+    const long long c0 = (long long)blockIdx.x * cpb;
+    const int nchains = (int)min((long long)cpb, c - c0);
+    const int gcols = nchains * kcls;  // the group's columns (the window-relative order below)
+    const long long qbeg = c0 * kcls;
+    const int nwin = (gcols + NC - 1) / NC;
+    const int nwin1 = (cpb * kcls + NC - 1) / NC;  // windows of a whole group in pbeta1
+    const int ns = (d + DS - 1) / DS;
+    const int n_tiles = (n + TM - 1) / TM;
+    const int my_tiles = ((int)gridDim.y - 1 + n_tiles - (int)blockIdx.y) / (int)gridDim.y;
+
+    // thread 0's place in the block's sequence of slices (row tile, window,
+    // slice): the next to ask for
+    int p_it = 0, p_w = 0, p_s = 0, p_st = 0;
+    auto request_next = [&]() {
+        if (p_it >= my_tiles) return;
+        request_slice(ring + p_st * STAGE_BYTES, &bars[p_st], pbeta1, px, ((long long)blockIdx.x * nwin1 + p_w) * ns + p_s,
+                      ((long long)blockIdx.y + (long long)p_it * gridDim.y) * ns + p_s);
+        if (++p_st == LSE_STAGES) p_st = 0;
+        if (++p_s == ns) {
+            p_s = 0;
+            if (++p_w == nwin) {
+                p_w = 0;
+                ++p_it;
+            }
+        }
+    };
+    if (tid == 0) {
+        for (int s = 0; s < LSE_STAGES; ++s) mbar_init(&bars[s], 1);
+        fence_mbar_init();
+    }
+    for (int q = tid; q < nchains; q += THREADS) lpacc[q] = 0.0;
+    __syncthreads();  // the barriers are initialised
+    if (tid == 0) {
+        for (int s = 0; s < LSE_STAGES; ++s) request_next();
+    }
+
+    RingPlace at(LSE_STAGES);
+    bool started = false;  // a slice has been consumed: its stage can be asked for again
+    for (int it = 0; it < my_tiles; ++it) {
+        const long long r0 = (long long)(blockIdx.y + it * gridDim.y) * TM;
+        for (int i = tid; i < TM * nchains; i += THREADS) {
+            mrun[i] = -INFINITY;
+            srun[i] = 0.0f;
+        }
+        for (int i = tid; i < TM; i += THREADS) cp_async4(ys + i, r0 + i < n ? y + r0 + i : y, r0 + i < n ? 4 : 0);
+        for (int w = 0; w < nwin; ++w) {
+            const int qw = w * NC;  // the window's first column in the group
+            // the window's alpha (the previous window's epilogue is done with it:
+            // the barrier before its sweep) and segments (the other buffer)
+            int4* seg = segs + (w & 1) * (NC + 1);
+            for (int j = tid; j < NC; j += THREADS) {
+                cp_async4(alpha_s + j, qw + j < gcols ? alpha + qbeg + qw + j : alpha, qw + j < gcols ? 4 : 0);
+            }
+            const int ca = qw / kcls;
+            const int qz = min(gcols, qw + NC);
+            const int nseg = (qz - 1) / kcls - ca + 1;
+            for (int sg = tid; sg < nseg; sg += THREADS) {
+                const int ch = ca + sg;
+                seg[sg] = make_int4(max(ch * kcls, qw) - qw, min((ch + 1) * kcls, qz) - qw, ch, ch * kcls - qw);
+            }
+            float eta[20];
+#pragma unroll
+            for (int e = 0; e < 20; ++e) eta[e] = 0.0f;
+            for (int s = 0; s < ns; ++s) {
+                mbar_wait(&bars[at.st], at.parity);
+                const float* stage = reinterpret_cast<const float*>(ring + at.st * STAGE_BYTES);
+                // the stage the previous slice used (free since the barrier after it) is asked for again
+                slice_product(eta, stage, stage + 2 * NC * DS, [&] {
+                    if (tid == 0 && started) request_next();
+                });
+                started = true;
+                __syncthreads();  // every thread is done with the stage (and with the previous window's sweep)
+                at.next();
+            }
+            cp_async_wait_all();
+            __syncthreads();  // alpha (and y) are in
+            float a[10];  // alpha of this thread's ten columns, loaded before the stores
+#pragma unroll
+            for (int q = 0; q < 10; ++q) a[q] = alpha_s[40 * slice + 8 * (q >> 1) + 2 * t + (q & 1)];
+#pragma unroll
+            for (int e = 0; e < 20; ++e) {
+                const int row = row_a + 8 * ((e >> 1) & 1);
+                const int col = 40 * slice + 8 * (e >> 2) + 2 * t + (e & 1);
+                eb[row * EB + col] = eta[e] + a[2 * (e >> 2) + (e & 1)];
+            }
+            __syncthreads();
+            // the (row, chain segment) sweep
+            if (kcls > 40) {
+                sweep<4, NC / 4>(eb, seg, nseg, ys, kcls, mrun, srun, pick);
+            } else if (kcls >= 16) {
+                sweep<4, 10>(eb, seg, nseg, ys, kcls, mrun, srun, pick);
+            } else if (kcls > 8) {
+                sweep<1, 16>(eb, seg, nseg, ys, kcls, mrun, srun, pick);
+            } else if (kcls > 4) {
+                sweep<1, 8>(eb, seg, nseg, ys, kcls, mrun, srun, pick);
+            } else {
+                sweep<1, 4>(eb, seg, nseg, ys, kcls, mrun, srun, pick);
+            }
+        }
+        __syncthreads();
+        // lse, and lp of each (chain, row), masked past N
+        for (int i = tid; i < TM * nchains; i += THREADS) {
+            const int q = i / TM;
+            const int r = i % TM;
+            const bool ok = r0 + r < n;
+            const float l = mrun[i] + logf(srun[i]);
+            if (ok) lse[(c0 + q) * n + r0 + r] = l;
+            pick[i] = ok ? pick[i] - l : 0.0f;
+        }
+        __syncthreads();
+        // the tile's lp per chain, rows in order in float, into the block's sums in double
+        for (int q = tid; q < nchains; q += THREADS) {
+            float tile_lp = 0.0f;
+            for (int r = 0; r < TM; ++r) tile_lp += pick[q * TM + r];
+            lpacc[q] += (double)tile_lp;
+        }
+    }
+    __syncthreads();
+    for (int q = tid; q < nchains; q += THREADS) partials[(size_t)blockIdx.y * c + c0 + q] = (float)lpacc[q];
+}
+
+// Launch 2.  grid (column tiles, row blocks, D groups of 64*MT rows of
+// [gbeta; galpha]).  partials (row blocks, C*K*(1 + D)): galpha (C, K) then
+// gbeta (C, D, K).  WHOLE_X: x comes whole a row tile (product 1 reads its
+// slices there), the ring carries beta alone; else the ring carries x too and
+// the window holds the group's slices.  Two blocks share an SM at MT = 1 (at
+// most 128 registers a thread).
+template <int MT, bool WHOLE_X>
+__global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
+categorical_grad_kernel(const int* __restrict__ y, const float* __restrict__ alpha, const float* __restrict__ pbeta2,
+                        const float* __restrict__ px, const float* __restrict__ lse, int n, int d, int c, int kcls,
+                        int nch, int stages, float* __restrict__ partials) {
+    constexpr int W = 64 * MT;  // rows of [gbeta; galpha] in a group
+    constexpr uint32_t RING_STAGE = WHOLE_X ? BETA_SLICE_BYTES : (uint32_t)STAGE_BYTES;
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int ns = (d + DS - 1) / DS;
+    const GradLayout L = grad_layout_of(MT, nch, stages, WHOLE_X, ns);
+    unsigned char* ring = smem + L.ring;
+    float* thi = reinterpret_cast<float*>(smem + L.th);     // (NC x 64) K-major theta' hi
+    float* tlo = thi + NC * TM;                             //                    theta' lo
+    float* xw = reinterpret_cast<float*>(smem + L.xw);      // packed x slices of the row tile
+    float* lse_s = reinterpret_cast<float*>(smem + L.lse);  // (nch, TM) the tile's lse
+    int* ys = reinterpret_cast<int*>(smem + L.ys);
+    int4* col = reinterpret_cast<int4*>(smem + L.col);          // column j: class, chain from the tile's first, valid, alpha
+    long long* cb = reinterpret_cast<long long*>(smem + L.cb);  // c*D*K + k of column j (-1: none)
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);  // the ring's, then the window's at MAX_GRAD_STAGES
+    uint64_t* wbar = bars + MAX_GRAD_STAGES;
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int t = lane & 3;
+    const int slice = tid >> 7;
+    const int row_a = 16 * (warp & 3) + (lane >> 2);
+    const long long ncols = (long long)c * kcls;
+    const long long q0 = (long long)blockIdx.x * NC;
+    const long long cfirst = q0 / kcls;
+    const int g0 = blockIdx.z * W;
+    // the window: all slices (WHOLE_X), or the group's (none: the row of ones alone)
+    const int ws0 = WHOLE_X ? 0 : g0 / DS;
+    const int wsl = WHOLE_X ? ns : min(2 * MT, ns - g0 / DS);
+    const int n_tiles = (n + TM - 1) / TM;
+    const int my_tiles = ((int)gridDim.y - 1 + n_tiles - (int)blockIdx.y) / (int)gridDim.y;
+
+    // thread 0's place in the block's sequence of slices (row tile, slice): the next to ask for
+    int p_it = 0, p_s = 0, p_st = 0;
+    auto request_next = [&]() {
+        if (p_it >= my_tiles) return;
+        request_slice(ring + p_st * RING_STAGE, &bars[p_st], pbeta2, WHOLE_X ? nullptr : px,
+                      (long long)blockIdx.x * ns + p_s, ((long long)blockIdx.y + (long long)p_it * gridDim.y) * ns + p_s);
+        if (++p_st == stages) p_st = 0;
+        if (++p_s == ns) {
+            p_s = 0;
+            ++p_it;
+        }
+    };
+    auto request_window = [&](int it) {
+        if (it >= my_tiles || wsl <= 0) return;
+        const long long rt = blockIdx.y + (long long)it * gridDim.y;
+        mbar_expect_bytes(wbar, wsl * X_SLICE_BYTES);  // written by these copies alone, as the ring
+        bulk_copy(xw, px + (rt * ns + ws0) * (TM * XS), wsl * X_SLICE_BYTES, wbar);
+    };
+    for (int j = tid; j < NC; j += THREADS) {
+        const long long q = q0 + j;
+        const long long cc = q / kcls;
+        const int k = (int)(q - cc * kcls);
+        cb[j] = q < ncols ? cc * d * kcls + k : -1;
+        col[j] = make_int4(k, (int)(cc - cfirst), q < ncols, __float_as_int(q < ncols ? alpha[q] : 0.0f));
+    }
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+        mbar_init(wbar, 1);
+        fence_mbar_init();
+    }
+    __syncthreads();  // the barriers are initialised, the column table written
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) request_next();
+        request_window(0);
+    }
+    const uint64_t dth_hi = kmajor_desc(thi, TM) + slice * desc_n40_step(TM);
+    const uint64_t dth_lo = kmajor_desc(tlo, TM) + slice * desc_n40_step(TM);
+
+    float accg[MT][20];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 20; ++e) accg[m][e] = 0.0f;
+
+    RingPlace at(stages);
+    bool started = false;  // a slice has been consumed: its stage can be asked for again
+    for (int it = 0; it < my_tiles; ++it) {
+        const long long r0 = (long long)(blockIdx.y + it * gridDim.y) * TM;
+        // the tile's lse and y: the previous tile is done with them (the barrier ending it)
+        for (int i = tid; i < TM * nch; i += THREADS) {
+            const int h = i / TM;
+            const int r = i % TM;
+            const bool ok = r0 + r < n && cfirst + h < c;
+            cp_async4(lse_s + i, ok ? lse + (cfirst + h) * n + r0 + r : lse, ok ? 4 : 0);
+        }
+        for (int i = tid; i < TM; i += THREADS) cp_async4(ys + i, r0 + i < n ? y + r0 + i : y, r0 + i < n ? 4 : 0);
+        if (WHOLE_X) mbar_wait(wbar, (uint32_t)(it & 1));
+
+        // --- product 1: eta = x_tile @ beta_tile, a slice at a time ----------
+        float eta[20];
+#pragma unroll
+        for (int e = 0; e < 20; ++e) eta[e] = 0.0f;
+        for (int s = 0; s < ns; ++s) {
+            mbar_wait(&bars[at.st], at.parity);
+            const float* stage = reinterpret_cast<const float*>(ring + at.st * RING_STAGE);
+            // the stage the previous slice used (free since the barrier after it) is asked for again
+            slice_product(eta, stage, WHOLE_X ? xw + s * (TM * XS) : stage + 2 * NC * DS, [&] {
+                if (tid == 0 && started) request_next();
+            });
+            started = true;
+            __syncthreads();  // every thread is done with the stage
+            at.next();
+        }
+        cp_async_wait_all();
+        __syncthreads();  // the tile's lse and y are in
+
+        // --- theta' = onehot(y) - exp(eta + alpha - lse), hi/lo, K-major -----
+        // Rows past N and columns past C*K are not masked here: x is zero
+        // there (and the row of ones masked in product 2), and a column past
+        // C*K is never written out.  exp by ex2.approx (__expf): theta' is a
+        // gradient's weight, its tolerance rtol 3e-4.
+        // (every load before the stores, which the compiler cannot tell apart
+        // from them: one round trip of latency, not twenty)
+        const int yk0 = min(max(ys[row_a], 1), kcls) - 1;
+        const int yk1 = min(max(ys[row_a + 8], 1), kcls) - 1;
+        float tps[20];
+#pragma unroll
+        for (int e = 0; e < 20; ++e) {
+            const int row = row_a + 8 * ((e >> 1) & 1);
+            const int4 cj = col[40 * slice + 8 * (e >> 2) + 2 * t + (e & 1)];
+            tps[e] = (cj.x == ((e >> 1) & 1 ? yk1 : yk0) ? 1.0f : 0.0f) -
+                     __expf(eta[e] + __int_as_float(cj.w) - lse_s[cj.y * TM + row]);
+        }
+#pragma unroll
+        for (int e = 0; e < 20; ++e) {
+            const int row = row_a + 8 * ((e >> 1) & 1);
+            const int j = 40 * slice + 8 * (e >> 2) + 2 * t + (e & 1);
+            uint32_t h, l;
+            split(tps[e], h, l);
+            thi[kmajor_index(j, row, TM)] = __uint_as_float(h);
+            tlo[kmajor_index(j, row, TM)] = __uint_as_float(l);
+        }
+        fence_proxy_async();  // theta' is read by wgmma next
+        __syncthreads();
+        if (!WHOLE_X && wsl > 0) mbar_wait(wbar, (uint32_t)(it & 1));
+
+        // --- product 2: the group's rows of [gbeta; galpha] += [x, 1]^T @ theta'
+        const float* xg = xw + (WHOLE_X ? g0 / DS : 0) * (TM * XS);  // the group's first slice
+        const int rows = (int)min((long long)TM, n - r0);             // the row of ones stops at N
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+            auto xtval = [xg, g0, d, rows](int dd, int r) {
+                const int f = g0 + dd;
+                return f < d ? xg[(dd / DS) * (TM * XS) + r * XS + dd % DS] : (f == d && r < rows ? 1.0f : 0.0f);
+            };
+            float acc[20];
+#pragma unroll
+            for (int e = 0; e < 20; ++e) acc[e] = 0.0f;
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int k0 = 0; k0 < TM / 8; k0 += 2) {
+                mma_steps<2>(acc, ah, al, 64 * m + row_a, t, k0, xtval, dth_hi, dth_lo);
+                wgmma_wait_all();
+            }
+            fence_regs(acc);
+#pragma unroll
+            for (int e = 0; e < 20; ++e) accg[m][e] += acc[e];
+        }
+        fence_proxy_async();  // theta' and the window are written again for the next tile
+        __syncthreads();
+        if (tid == 0) request_window(it + 1);
+    }
+
+    // --- this block's partial ------------------------------------------------
+    float* part = partials + (size_t)blockIdx.y * (size_t)(ncols * (1 + d));
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int e = 0; e < 20; ++e) {
+            const int dd = g0 + 64 * m + row_a + 8 * ((e >> 1) & 1);
+            const int j = 40 * slice + 8 * (e >> 2) + 2 * t + (e & 1);
+            const long long b = cb[j];
+            if (b < 0 || dd > d) continue;
+            if (dd < d) {
+                part[ncols + b + (long long)dd * kcls] = accg[m][e];
+            } else {
+                part[q0 + j] = accg[m][e];
+            }
+        }
+    }
+}
+
+// The instantiated (MT, WHOLE_X) of launch 2.  The wrapper's plan
+// (ops/glm_fused.py) lists the same set.
+#define GLM_CATEGORICAL_TILED_MT(X) X(1, true) X(2, true) X(4, true) X(7, true) X(1, false) X(2, false) X(4, false) X(7, false)
+
+}  // namespace tiled
+
 }  // namespace
 
 // Chains one column tile of ncols columns holds.
@@ -490,4 +1203,83 @@ extern "C" int glm_categorical_launch(const void* y, const void* x, const void* 
     if (err != cudaSuccess) return (int)err;
     const long long m = (long long)c * (1 + kcls + (long long)d * kcls);
     return (int)glm_common::reduce_partials(pf, out, row_blocks, m, stream);
+}
+
+// The tiled pair: bytes of dynamic shared memory of launch 1 (pass 1; a =
+// cpb chains a block) or of launch 2 (pass 2; a = mt, b = the most chains a
+// tile touches, the ring's stages, whole_x, d).
+extern "C" long long glm_categorical_tiled_smem_bytes(int pass, int a, int b, int stages, int whole_x, int d) {
+    return pass == 1 ? (long long)tiled::lse_layout_of(a).total
+                     : (long long)tiled::grad_layout_of(a, b, stages, whole_x != 0, (d + tiled::DS - 1) / tiled::DS).total;
+}
+
+// The tiled pair for any shape: launch 0 (packs beta and x into packed:
+// launch 2's beta stages, ceil(c*kcls / 80) * ceil(d / 32) * 5,120 floats,
+// launch 1's, ceil(c / cpb) * ceil(cpb*kcls / 80) * ceil(d / 32) * 5,120,
+// then the x stages, ceil(n / 64) * ceil(d / 32) * 2,304), launch 1 (lse (c,
+// n) scratch, logp partials), launch 2 (galpha and gbeta partials), the two
+// reductions into out (logp (c), galpha (c, kcls), gbeta (c, d, kcls)).
+// partials: row_blocks_lse * c floats, then row_blocks * c*kcls*(1 + d).  cpb
+// chains a block of launch 1 (at most 16); groups of 64*mt rows of [gbeta;
+// galpha], the ring's stages (2-4) and whole_x in launch 2.  Returns the CUDA
+// error code of the five launches (0: all were accepted).
+extern "C" int glm_categorical_tiled_launch(const void* y, const void* x, const void* alpha, const void* beta,
+                                            void* lse, void* packed, void* partials, void* out, int n, int d, int c,
+                                            int kcls, int mt, int groups, int cpb, int row_blocks_lse, int row_blocks,
+                                            int stages, int whole_x, void* stream_ptr) {
+    using namespace tiled;
+    const long long rows = (long long)d + 1;
+    const long long ncols = (long long)c * kcls;
+    const long long tiles = (ncols + NC - 1) / NC;
+    const long long ns = (d + DS - 1) / DS;
+    if (n < 1 || d < 1 || c < 1 || kcls < 1 || cpb < 1 || groups < 1 || groups > 65535 || row_blocks_lse < 1 ||
+        row_blocks_lse > 65535 || row_blocks < 1 || row_blocks > 65535 || tiles > 0x7fffffffLL ||
+        cpb > MAX_CPB || (long long)cpb * kcls > 0x7fffffffLL - NC || (long long)groups * 64 * mt < rows ||
+        (long long)(groups - 1) * 64 * mt >= rows || stages < 2 || stages > MAX_GRAD_STAGES) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int nch = chains_per_tile(kcls, c);
+    const size_t smem1 = lse_layout_of(cpb).total;
+    const size_t smem2 = grad_layout_of(mt, nch, stages, whole_x != 0, (int)ns).total;
+    if (smem1 > MAX_SMEM || smem2 > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+    const int* yi = static_cast<const int*>(y);
+    const float* af = static_cast<const float*>(alpha);
+    float* lf = static_cast<float*>(lse);
+    const long long nb2 = tiles * ns * (2 * NC * DS);
+    const long long nb1 = (long long)((c + cpb - 1) / cpb) * ((cpb * kcls + NC - 1) / NC) * ns * (2 * NC * DS);
+    const long long nx = (long long)((n + TM - 1) / TM) * ns * (TM * XS);
+    float* pbeta2 = static_cast<float*>(packed);
+    float* pbeta1 = pbeta2 + nb2;
+    float* px = pbeta1 + nb1;
+    float* part1 = static_cast<float*>(partials);
+    float* part2 = part1 + (size_t)row_blocks_lse * c;
+    const long long pack_blocks = (nb2 + nb1 + nx + THREADS - 1) / THREADS;
+    categorical_pack_kernel<<<(unsigned)(pack_blocks < 8192 ? pack_blocks : 8192), THREADS, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(beta), n, d, c, kcls, cpb, pbeta2, pbeta1, px);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(categorical_lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    if (err != cudaSuccess) return (int)err;
+    categorical_lse_kernel<<<dim3((c + cpb - 1) / cpb, row_blocks_lse), THREADS, smem1, stream>>>(
+        yi, af, pbeta1, px, n, d, c, kcls, cpb, lf, part1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaErrorInvalidValue;
+#define GLM_CATEGORICAL_TILED_CASE(MT_, WHOLE_)                                                                     \
+    if (mt == MT_ && (whole_x != 0) == WHOLE_) {                                                                    \
+        err = cudaFuncSetAttribute(categorical_grad_kernel<MT_, WHOLE_>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                   (int)smem2);                                                                     \
+        if (err == cudaSuccess) {                                                                                   \
+            categorical_grad_kernel<MT_, WHOLE_><<<dim3((unsigned)tiles, row_blocks, groups), THREADS, smem2, stream>>>( \
+                yi, af, pbeta2, px, lf, n, d, c, kcls, nch, stages, part2);                                         \
+            err = cudaGetLastError();                                                                               \
+        }                                                                                                           \
+    } else
+    GLM_CATEGORICAL_TILED_MT(GLM_CATEGORICAL_TILED_CASE) { return (int)cudaErrorInvalidValue; }
+#undef GLM_CATEGORICAL_TILED_CASE
+    if (err != cudaSuccess) return (int)err;
+    err = glm_common::reduce_partials(part1, out, row_blocks_lse, c, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)glm_common::reduce_partials(part2, static_cast<float*>(out) + c, row_blocks, ncols * (1 + d), stream);
 }

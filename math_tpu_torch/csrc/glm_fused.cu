@@ -1,14 +1,12 @@
 // Fused GLM log-prob + parameter gradients for a batch of chains: two of the
 // port's three GLM kernels, which share their tiles, their two products and
-// their second pass, and the float32 route of the third.  The third, the
-// categorical logit, is on the tensor cores in glm_categorical.cu (3xTF32);
-// the shapes that kernel does not take come here.
+// their second pass.  The third, the categorical logit, is in
+// glm_categorical.cu, on the tensor cores (3xTF32) at every shape.
 //
 // Replaces the TPU kernels of math_tpu/ops/pallas_glm.py:
 //
 //   glm_fused_kernel<F>          _glm_kernel          four families, eta = x @ beta + alpha
 //   glm_ordered_kernel           _ordered_kernel      ordered-logistic GLM
-//   glm_categorical_wide_kernel  _categorical_kernel  categorical logit, K > 64 or a wide D
 //
 // Four families.  y (N,), x (N, K) row-major, alpha (C,), beta (K, C) row-major
 // and, for the sigma/phi families, extra (C,), all float32:
@@ -114,23 +112,13 @@
 //    the cuts in device memory, and gcuts is summed by one thread per (cut,
 //    chain) walking the tile's 64 rows in order.  expm1f / log1pf come from
 //    the CUDA math library (the TPU kernel carries a polynomial expm1).
-//  * The categorical logit: a column tile holds floor(64/K) chains of all K
-//    classes, or, past K = 64, one chain whose classes come in class tiles
-//    of at most 64.  Two sweeps a row tile: the first keeps each (row,
-//    chain)'s running maximum and sum of exponentials over the class tiles
-//    (an online log-sum-exp), the second recomputes eta a class tile at a
-//    time (where there is more than one), forms theta' = onehot(y) -
-//    softmax(eta) and adds x^T theta' and sum theta' to the partial.  lp is
-//    summed per tile in float and over the tiles in double, as in B3.
 //
-// What bounds the float32 kernels: their products in FP32 FMAs, 4*N*D*C (and
-// K times that for the categorical, 6*N*D*C*K where eta is recomputed) at
+// What bounds the float32 kernels: their products in FP32 FMAs, 4*N*D*C at
 // 67 TFLOP/s.  The inner loops take four features a step, a float4 of x per
 // row and of beta per feature: 64 FMAs for eight 16-byte shared loads.
 //
 // Shared memory per block of the float32 kernels, 4 bytes a float: kernel 1
-// 3*64*64 + 64 (49 KB); ordered 5*64*64 + 64 (80 KB); categorical 3*64*64 +
-// 2*64*cpt + 64 (49-81 KB).  Of the tensor-core kernels: tc_layout_of
+// 3*64*64 + 64 (49 KB); ordered 5*64*64 + 64 (80 KB).  Of the tensor-core kernels: tc_layout_of
 // (204-216 KB at D=50); a shape whose block does not fit 227 KB (D = 57-63
 // with K = 6-8) goes to the float32 kernels.
 
@@ -145,7 +133,7 @@ using namespace tf32x3;
 using glm_common::request_row_tile;
 
 constexpr int TM = 64;        // rows per tile
-constexpr int TC = 64;        // columns (chains; for the categorical, chain x class) per tile
+constexpr int TC = 64;        // columns (chains) per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 register tile
 constexpr int RM = 4;
 constexpr int RC = 4;
@@ -596,213 +584,6 @@ glm_ordered_kernel(const int* __restrict__ y, const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 3, the float32 route: categorical logit for the shapes the
-// tensor-core kernel (glm_categorical.cu) does not take
-// ---------------------------------------------------------------------------
-
-// A column tile holds cpt chains of kt classes each: all K classes of
-// floor(64 / K) chains where K <= 64, else one chain whose classes come in
-// nkt = ceil(K / kt) class tiles.  Column j of the tile is chain c0 + j / kt,
-// class kti*kt + j % kt of class tile kti.
-struct CatTile {
-    int c0, cpt, kt, kcls, c;
-    __device__ __forceinline__ int chain(int j) const { return j / kt; }
-    __device__ __forceinline__ int cls(int j, int kti) const { return kti * kt + j % kt; }
-    __device__ __forceinline__ bool valid(int j, int kti) const {
-        return j < cpt * kt && c0 + j / kt < c && cls(j, kti) < kcls;
-    }
-};
-
-// Shared memory of the float32 categorical kernel for cpt chains a tile.
-__host__ __device__ inline size_t categorical_wide_smem(int cpt) {
-    return sizeof(float) * ((size_t)TM * TC + DS * TC + TM * DS + 2 * (size_t)TM * cpt + TM);
-}
-
-// partials: (gridDim.x, C*(1 + K + D*K)); logp (C), galpha (C, K), gbeta (C, D,
-// K), as the tensor-core kernel's.  Per row tile two sweeps over the class
-// tiles: the first keeps each (row, chain)'s running maximum and sum of
-// exponentials (an online log-sum-exp; the sum is rescaled when the maximum
-// moves) and picks the logit of its class; the second forms theta' =
-// onehot(y) - softmax(eta) a class tile at a time, recomputing eta when there
-// is more than one class tile, and adds x^T theta' and sum theta' to the
-// block's partial.
-__global__ void __launch_bounds__(THREADS)
-glm_categorical_wide_kernel(const int* __restrict__ y, const float* __restrict__ x,
-                            const float* __restrict__ alpha, const float* __restrict__ beta,
-                            int n, int d, int c, int kcls, int cpt, int kt, float* __restrict__ partials) {
-    extern __shared__ float4 smem4[];
-    float* th = reinterpret_cast<float*>(smem4);  // TM * TC    eta, then theta' in place
-    float* bs = th + TM * TC;                     // DS * TC    beta slice of the class tile
-    float* xs = bs + DS * TC;                     // TM * DS    x slice
-    float* mx = xs + TM * DS;                     // TM * cpt   running maximum, then the log-sum-exp
-    float* se = mx + TM * cpt;                    // TM * cpt   running sum of exp(eta - max); then lp
-    int* ys = reinterpret_cast<int*>(se + TM * cpt);  // TM     0-based classes
-
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-    const CatTile ct{(int)blockIdx.y * cpt, cpt, kt, kcls, c};
-    const int nkt = (kcls + kt - 1) / kt;
-    const int n_slices = (d + DS - 1) / DS;
-    const size_t mtot = (size_t)c * (1 + kcls + (size_t)d * kcls);
-    float* part = partials + (size_t)blockIdx.x * mtot;
-    float* part_ga = part + c;
-    float* part_gb = part_ga + (size_t)c * kcls;
-
-    // beta's slice s of class tile kti, column j = (chain, class)
-    auto stage_beta = [&](int s, int kti) {
-        for (int i = tid; i < DS * TC; i += THREADS) {
-            const int f = s * DS + i / TC;
-            const int j = i % TC;
-            bs[i] = (f < d && ct.valid(j, kti))
-                        ? beta[((size_t)(ct.c0 + ct.chain(j)) * d + f) * kcls + ct.cls(j, kti)] : 0.0f;
-        }
-    };
-    // eta + alpha of class tile kti into th (0 in the columns that hold no
-    // class); the last slice of x stays staged
-    auto eta_tile = [&](int r0, int kti) {
-        float acc[RM][RC];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-#pragma unroll
-            for (int j = 0; j < RC; ++j) acc[i][j] = 0.0f;
-        }
-        for (int s = 0; s < n_slices; ++s) {
-            __syncthreads();  // every thread is done with xs, bs and th
-            stage_x_slice(xs, x, r0, n, d, s * DS);
-            if (n_slices > 1 || nkt > 1) stage_beta(s, kti);
-            __syncthreads();
-            eta_product(acc, xs, bs, slice_width(d, s));
-        }
-#pragma unroll
-        for (int jj = 0; jj < RC; ++jj) {
-            const int j = tx * RC + jj;
-            const bool ok = ct.valid(j, kti);
-            const float a = ok ? alpha[(size_t)(ct.c0 + ct.chain(j)) * kcls + ct.cls(j, kti)] : 0.0f;
-#pragma unroll
-            for (int i = 0; i < RM; ++i) th[(ty * RM + i) * TC + j] = ok ? acc[i][jj] + a : 0.0f;
-        }
-        __syncthreads();
-    };
-
-    if (n_slices == 1 && nkt == 1) stage_beta(0, 0);  // staged once for the block
-
-    double lp_acc = 0.0;  // threads tid < cpt: the logp sum of chain c0 + tid
-    const int ntask = TM * cpt;  // (row, chain) pairs of the tile
-    const int nrounds = (4 * ntask + THREADS - 1) / THREADS;
-    const int n_tiles = (n + TM - 1) / TM;
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const int r0 = t * TM;
-        const bool first = t == (int)blockIdx.x;
-        __syncthreads();  // the previous tile is done with ys, mx, se
-        if (tid < TM) ys[tid] = (r0 + tid < n) ? min(max(y[r0 + tid], 1), kcls) - 1 : 0;
-
-        // --- sweep 1: the online log-sum-exp over the class tiles -----------
-        // four threads a (row, chain), each over every fourth class of the
-        // tile, joined by shuffles; every thread takes part in every round
-        for (int kti = 0; kti < nkt; ++kti) {
-            eta_tile(r0, kti);
-            for (int round = 0; round < nrounds; ++round) {
-                const int i = round * THREADS + tid;
-                const int task = i >> 2;
-                const int sub = i & 3;
-                const bool live = task < ntask;
-                const int r = live ? task / cpt : 0;
-                const int q = live ? task % cpt : 0;
-                const float* e = th + r * TC + q * kt;
-                const int kn = min(kt, kcls - kti * kt);  // classes of this tile
-                float m = -INFINITY;
-                if (live) {
-                    for (int kk = sub; kk < kn; kk += 4) m = fmaxf(m, e[kk]);
-                }
-                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-                float sum = 0.0f;
-                if (live) {
-                    for (int kk = sub; kk < kn; kk += 4) sum += expf(e[kk] - m);
-                }
-                sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-                sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-                if (live && sub == 0) {
-                    if (kti == 0) {
-                        mx[task] = m;
-                        se[task] = sum;
-                    } else {
-                        const float m_new = fmaxf(mx[task], m);
-                        se[task] = se[task] * expf(mx[task] - m_new) + sum * expf(m - m_new);
-                        mx[task] = m_new;
-                    }
-                }
-            }
-        }
-        __syncthreads();
-        for (int task = tid; task < ntask; task += THREADS) mx[task] += logf(se[task]);  // the log-sum-exp
-        __syncthreads();
-
-        // --- sweep 2: theta' and the block's gradient sums -------------------
-        for (int kti = 0; kti < nkt; ++kti) {
-            if (nkt > 1) eta_tile(r0, kti);
-            // lp into se for the (row, chain) pairs whose class is in this tile
-            for (int task = tid; task < ntask; task += THREADS) {
-                const int r = task / cpt;
-                const int q = task % cpt;
-                const int yk = ys[r];
-                if (yk / kt == kti) {
-                    const bool ok = (r0 + r < n) && (ct.c0 + q < c);
-                    se[task] = ok ? th[r * TC + q * kt + yk % kt] - mx[task] : 0.0f;
-                }
-            }
-            __syncthreads();  // the logits are read before theta' replaces them
-            // theta' in place
-            for (int i = tid; i < TM * TC; i += THREADS) {
-                const int r = i / TC;
-                const int j = i % TC;
-                const bool ok = ct.valid(j, kti) && (r0 + r < n);
-                const float tp = ok ? (ct.cls(j, kti) == ys[r] ? 1.0f : 0.0f) - expf(th[i] - mx[r * cpt + ct.chain(j)]) : 0.0f;
-                th[i] = tp;
-            }
-            __syncthreads();
-            // galpha: the column sums of theta', rows in order
-            if (tid < TC && ct.valid(tid, kti)) {
-                float s = 0.0f;
-                for (int r = 0; r < TM; ++r) s += th[r * TC + tid];
-                put_partial(part_ga + (size_t)(ct.c0 + ct.chain(tid)) * kcls + ct.cls(tid, kti), s, first);
-            }
-            // gbeta: x^T theta', last slice first
-            for (int s = n_slices - 1; s >= 0; --s) {
-                if (s != n_slices - 1) {
-                    __syncthreads();
-                    stage_x_slice(xs, x, r0, n, d, s * DS);
-                    __syncthreads();
-                }
-                float g[4][RC];
-                xt_theta_slice(g, xs, th);
-#pragma unroll
-                for (int qq = 0; qq < 4; ++qq) {
-                    const int f = s * DS + ty * 4 + qq;
-#pragma unroll
-                    for (int jj = 0; jj < RC; ++jj) {
-                        const int j = tx * RC + jj;
-                        if (f < d && ct.valid(j, kti)) {
-                            put_partial(part_gb + ((size_t)(ct.c0 + ct.chain(j)) * d + f) * kcls + ct.cls(j, kti),
-                                        g[qq][jj], first);
-                        }
-                    }
-                }
-            }
-        }
-        __syncthreads();
-        // the tile's lp per chain, rows in order in float, into the block's sum in double
-        if (tid < cpt) {
-            float tile_lp = 0.0f;
-            for (int r = 0; r < TM; ++r) tile_lp += se[r * cpt + tid];
-            lp_acc += (double)tile_lp;
-        }
-    }
-    if (tid < cpt && ct.c0 + tid < c) part[ct.c0 + tid] = (float)lp_acc;
-}
-
-// ---------------------------------------------------------------------------
 // Kernels 1 and 2 on the tensor cores (3xTF32), the products taken transposed
 // ---------------------------------------------------------------------------
 
@@ -1248,29 +1029,6 @@ extern "C" int glm_ordered_launch(const void* y, const void* x, const void* beta
         glm_ordered_kernel, grid, ORDERED_SMEM, reinterpret_cast<cudaStream_t>(stream_ptr),
         static_cast<float*>(partials), out, (long long)(d + kcat) * c, static_cast<const int*>(y),
         static_cast<const float*>(x), static_cast<const float*>(beta), static_cast<const float*>(cuts), n, d, c, kcat);
-}
-
-// Bytes of dynamic shared memory one block of the float32 categorical kernel
-// needs for cpt chains a column tile.
-extern "C" long long glm_categorical_wide_smem_bytes(int cpt) { return (long long)categorical_wide_smem(cpt); }
-
-// The float32 categorical kernel: cpt chains of kt classes a column tile
-// (cpt * kt <= 64; cpt == 1 where kt < kcls).  partials: (row_blocks,
-// c*(1 + kcls + d*kcls)); out: the same length, logp (c), galpha (c, kcls),
-// gbeta (c, d, kcls), as glm_categorical_launch's.
-extern "C" int glm_categorical_wide_launch(const void* y, const void* x, const void* alpha, const void* beta,
-                                           void* partials, void* out, int n, int d, int c, int kcls, int cpt, int kt,
-                                           int row_blocks, void* stream_ptr) {
-    if (d < 1 || c < 1 || kcls < 1 || cpt < 1 || kt < 1 || cpt * kt > TC || (kt < kcls && cpt != 1) || kt > kcls ||
-        !row_blocks_ok(n, row_blocks)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const dim3 grid(row_blocks, (c + cpt - 1) / cpt);
-    return (int)launch_two_pass(
-        glm_categorical_wide_kernel, grid, categorical_wide_smem(cpt), reinterpret_cast<cudaStream_t>(stream_ptr),
-        static_cast<float*>(partials), out, (long long)c * (1 + kcls + (long long)d * kcls), static_cast<const int*>(y),
-        static_cast<const float*>(x), static_cast<const float*>(alpha), static_cast<const float*>(beta), n, d, c, kcls,
-        cpt, kt);
 }
 
 // Shared memory of one block of the tensor-core kernels (TC_CHAINS chains):

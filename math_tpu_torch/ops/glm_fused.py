@@ -13,13 +13,15 @@ sources:
   float32 FMAs with the features in slices of 64, for every wider shape (and
   the ordered ``D`` 57-63 at ``K`` 6-8, whose block does not fit shared
   memory).  ``glm_tile_plan`` picks the route and the tile by shape alone;
-- ``glm_categorical_kernel`` (``_categorical_kernel``),
-  ``csrc/glm_categorical.cu``: the categorical-logit GLM, ``logp``,
-  ``galpha``, ``gbeta``, its two products on the tensor cores in 3xTF32,
-  where ``categorical_tile_plan`` finds a tile (``K <= 64`` and ``D`` up to
-  its instances); every other shape goes to ``glm_categorical_wide_kernel``
-  in ``csrc/glm_fused.cu`` (float32 FMAs, ``D`` in slices, the classes in
-  tiles, an online log-sum-exp).  ``categorical_route`` picks by shape alone.
+- ``_categorical_kernel``, ``csrc/glm_categorical.cu``: the
+  categorical-logit GLM, ``logp``, ``galpha``, ``gbeta``, its two products on
+  the tensor cores in 3xTF32 at every shape, by two kernels:
+  ``glm_categorical_kernel`` where ``categorical_tile_plan`` finds a tile
+  (``K <= 64`` and ``D`` up to its instances), and the tiled pair
+  (``categorical_pack_kernel``, ``categorical_lse_kernel``, then
+  ``categorical_grad_kernel``; the classes in flat column tiles, ``D`` in
+  slices and groups) for every other shape.
+  ``categorical_route`` picks by shape alone.
 
 For the four families one pass over ``x`` gives, per chain,
 
@@ -42,7 +44,9 @@ take them (``kernel_layout``), so they refuse no layout and no integer type.
 There are no dispatch thresholds: those of the JAX package were measured on
 another chip and are not carried over.  ``LAUNCHES`` counts launches of the
 tensor-core kernels per family (and the categorical kernel's),
-``LAUNCHES_FMA`` those of the float32 kernels, ``PLAIN_CALLS`` calls of the
+``LAUNCHES_TILED`` calls of the tiled categorical pair (five launches a call:
+``TILED_LAUNCHES_PER_CALL``), ``LAUNCHES_FMA`` those of the float32 kernels
+(B1 and B2), ``PLAIN_CALLS`` calls of the
 plain version, ``LAYOUT_COPIES`` the dispatcher calls that had to copy ``x``
 or ``y``, so a run can show which one it went through.
 
@@ -61,6 +65,7 @@ lanes of one launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -83,6 +88,7 @@ KERNEL_FAMILIES = FAMILIES + (ORDERED, CATEGORICAL)
 
 LAUNCHES = {f: 0 for f in KERNEL_FAMILIES}
 LAUNCHES_FMA = {f: 0 for f in KERNEL_FAMILIES}
+LAUNCHES_TILED = {CATEGORICAL: 0}
 PLAIN_CALLS = {f: 0 for f in KERNEL_FAMILIES}
 LAYOUT_COPIES = {f: 0 for f in KERNEL_FAMILIES}
 
@@ -100,6 +106,7 @@ def reset_counts():
         LAUNCHES_FMA[f] = 0
         PLAIN_CALLS[f] = 0
         LAYOUT_COPIES[f] = 0
+    LAUNCHES_TILED[CATEGORICAL] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -155,8 +162,8 @@ _cat_lib = None
 
 
 def _library():
-    """The kernels of ``csrc/glm_fused.cu`` (four families, ordered, the
-    float32 categorical route), built at first use."""
+    """The kernels of ``csrc/glm_fused.cu`` (four families, ordered), built at
+    first use."""
     global _lib
     if _lib is None:
         lib = _build.load_library("glm_fused")
@@ -176,16 +183,12 @@ def _library():
         lib.glm_tc_max_d.argtypes = []
         lib.glm_tc_max_categories.restype = ctypes.c_int
         lib.glm_tc_max_categories.argtypes = []
-        lib.glm_categorical_wide_launch.restype = ctypes.c_int
-        lib.glm_categorical_wide_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.glm_categorical_wide_smem_bytes.restype = ctypes.c_longlong
-        lib.glm_categorical_wide_smem_bytes.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 
 
 def _categorical_library():
-    """The categorical kernel of ``csrc/glm_categorical.cu``, built at first use."""
+    """The categorical kernels of ``csrc/glm_categorical.cu``, built at first use."""
     global _cat_lib
     if _cat_lib is None:
         lib = _build.load_library("glm_categorical")
@@ -195,6 +198,10 @@ def _categorical_library():
         lib.glm_categorical_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.glm_categorical_chains_per_tile.restype = ctypes.c_int
         lib.glm_categorical_chains_per_tile.argtypes = [ctypes.c_int] * 2
+        lib.glm_categorical_tiled_launch.restype = ctypes.c_int
+        lib.glm_categorical_tiled_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.glm_categorical_tiled_smem_bytes.restype = ctypes.c_longlong
+        lib.glm_categorical_tiled_smem_bytes.argtypes = [ctypes.c_int] * 6
         _cat_lib = lib
     return _cat_lib
 
@@ -837,41 +844,139 @@ def categorical_tile_plan(n, d, c, k, sms):
     return plan
 
 
-WIDE_COLUMNS = 64  # columns of a tile of the float32 categorical kernel
+# The tiled pair (categorical_pack_kernel, categorical_lse_kernel,
+# categorical_grad_kernel<MT, WHOLE_X> in csrc/glm_categorical.cu): flat (chain, class)
+# column tiles of 80 (an n40 slice per warpgroup), D in slices of 32 through a
+# ring of stages (beta hi/lo K-major, 20,480 bytes; x rows 36 floats apart,
+# 9,216 bytes): 2 in launch 1 (cpb chains a block, at most 16), 2-4 in launch
+# 2 (beta alone where x comes whole a row tile, ``whole_x``); launch 2's
+# groups of 64*MT rows of [gbeta; galpha] (its instances TILED_MT, each with
+# and without whole_x; else a window of 2*MT packed x slices).
+TILED_COLUMNS = 80
+TILED_DS = 32
+TILED_XS = TILED_DS + 4
+TILED_LSE_STAGES = 2
+TILED_MAX_GRAD_STAGES = 4
+TILED_MAX_CPB = 16
+TILED_MT = (1, 2, 4, 7)
+TILED_BETA_SLICE = 2 * TILED_COLUMNS * TILED_DS * 4
+TILED_X_SLICE = 64 * TILED_XS * 4
+TILED_LAUNCHES_PER_CALL = 5  # pack, launch 1, launch 2, the two reductions
+TILED_PARTIAL_FLOATS = 1 << 26  # launch 2's partials are capped at 256 MB
 
 
-def categorical_wide_smem_bytes(cpt):
-    """Bytes of shared memory one block of the float32 categorical kernel
-    needs: the eta / theta' tile, a beta and an x slice (64 x 64 each), the
-    running maximum and sum (64 x ``cpt``), y."""
-    return 4 * (3 * 64 * WIDE_COLUMNS + 2 * 64 * cpt + 64)
+def tiled_chains_per_tile(k, c):
+    """The most chains a tile of 80 flat columns touches."""
+    return min(c, (TILED_COLUMNS - 1) // k + 2)
 
 
-def categorical_wide_plan(n, d, c, k, sms):
-    """The float32 categorical kernel's tile, any ``d`` and ``k``: ``cpt``
-    chains of ``kt`` classes a 64-column tile (all ``k`` classes of
-    ``64 // k`` chains where ``k <= 64``; else one chain, its classes in
-    ``nkt`` tiles of at most 64 and of nearly equal width), ``column_tiles``,
-    ``row_blocks`` (about two blocks an SM), ``smem``."""
-    if k <= WIDE_COLUMNS:
-        cpt, kt = WIDE_COLUMNS // k, k
-    else:
-        nkt = -(-k // WIDE_COLUMNS)
-        cpt, kt = 1, -(-k // nkt)
-    return {"route": "fma", "cpt": cpt, "kt": kt, "nkt": -(-k // kt), "column_tiles": -(-c // cpt),
-            "row_blocks": row_blocks_for(n, c, sms, cols=cpt), "smem": categorical_wide_smem_bytes(cpt)}
+def categorical_lse_smem_bytes(cpb):
+    """Bytes of shared memory of a block of launch 1 (its ``lse_layout_of``):
+    the ring, eta + alpha of a window (64 rows of 84), its chain segments (two
+    tables of 81), the running maximum, sum and picked logit (3 x 64 x
+    ``cpb``), the logp sums, alpha of a window, y of a row tile, the
+    barriers."""
+    parts = (64 * (TILED_COLUMNS + 4) * 4, 2 * (TILED_COLUMNS + 1) * 16, 64 * cpb * 4, 64 * cpb * 4, 64 * cpb * 4, cpb * 8,
+             TILED_COLUMNS * 4, 64 * 4, TILED_LSE_STAGES * 8)
+    return TILED_LSE_STAGES * (TILED_BETA_SLICE + TILED_X_SLICE) + sum(_up128(p) for p in parts)
+
+
+def categorical_grad_smem_bytes(mt, nch, stages, whole_x, d):
+    """Bytes of shared memory of a block of launch 2 (its ``grad_layout_of``):
+    the ring (``stages`` slices of beta, and of x unless ``whole_x``), theta'
+    hi/lo (2 x 80 x 64), x (all ``ceil(d / 32)`` packed slices of a row tile
+    where ``whole_x``, else the group's 2*mt), the tile's lse (64 x ``nch``),
+    y, the column table (class, chain, valid, alpha; offsets), the
+    barriers."""
+    ring = stages * (TILED_BETA_SLICE + (0 if whole_x else TILED_X_SLICE))
+    parts = (2 * TILED_COLUMNS * 64 * 4, (-(-d // TILED_DS) if whole_x else 2 * mt) * TILED_X_SLICE, 64 * nch * 4,
+             64 * 4, TILED_COLUMNS * 16, TILED_COLUMNS * 8, (TILED_MAX_GRAD_STAGES + 1) * 8)
+    return ring + sum(_up128(p) for p in parts)
+
+
+def tiled_chains_per_block(c, k):
+    """Launch 1's chains a block: at most 16 (its running sums), the fewest
+    idle columns in its windows of 80, the most chains among equals."""
+    idle = lambda q: -(-q * k // TILED_COLUMNS) * TILED_COLUMNS / (q * k)  # noqa: E731
+    return min(range(1, min(c, TILED_MAX_CPB) + 1), key=lambda q: (idle(q), -q))
+
+
+def categorical_packed_floats(n, d, c, k, cpb):
+    """Floats of launch 0's packed operands: launch 2's beta stages (80
+    columns by 32 features, hi and lo, per column tile), launch 1's (per
+    chain group of ``cpb`` and window), the x stages (64 rows of 36 by
+    slice)."""
+    ns = -(-d // TILED_DS)
+    stage = 2 * TILED_COLUMNS * TILED_DS
+    return (-(-(c * k) // TILED_COLUMNS) * ns * stage, -(-c // cpb) * -(-(cpb * k) // TILED_COLUMNS) * ns * stage,
+            -(-n // 64) * ns * 64 * TILED_XS)
+
+
+def _row_blocks(blocks, n_tiles, slots, cap):
+    """Row blocks for ``blocks`` blocks a row block: the fewest whose cost,
+    waves of ``slots`` resident blocks times row tiles a block, is within 3%
+    of the least (more row blocks cost partials and their reduction)."""
+    costs = [-(-blocks * rb // slots) * -(-n_tiles // rb) for rb in range(1, max(1, min(n_tiles, cap)) + 1)]
+    return next(rb for rb, cost in enumerate(costs, 1) if cost <= 1.03 * min(costs))
+
+
+@functools.lru_cache(maxsize=256)
+def _tiled_plan(n, d, c, k, sms):
+    m_tiles = -(-(d + 1) // 64)
+    cpb = tiled_chains_per_block(c, k)
+    nch = tiled_chains_per_tile(k, c)
+    smem_lse = categorical_lse_smem_bytes(cpb)
+    per_sm_lse = max(1, min(2, SM_SMEM_BYTES // (smem_lse + 1024)))
+    # launch 2: the fewest groups (each computes product 1 again), then the
+    # most resident blocks (two at mt = 1, its register cap), then x whole a
+    # row tile, then the deepest ring, that fit shared memory
+    for cap in reversed(TILED_MT):
+        groups = -(-m_tiles // cap)
+        mt = next(i for i in TILED_MT if i * groups >= m_tiles)
+        options = []
+        for whole_x in (True, False):
+            for stages in range(2, TILED_MAX_GRAD_STAGES + 1):
+                smem = categorical_grad_smem_bytes(mt, nch, stages, whole_x, d)
+                if smem <= MAX_SMEM_BYTES:
+                    per = max(1, min(2 if mt == 1 else 1, SM_SMEM_BYTES // (smem + 1024)))
+                    options.append(((per, whole_x, stages), smem))
+        if options:
+            break
+    (per_sm, whole_x, stages), smem = max(options)
+    n_tiles = -(-n // 64)
+    chain_groups, column_tiles = -(-c // cpb), -(-(c * k) // TILED_COLUMNS)
+    return {"route": "tensor_cores", "kernel": "tiled", "mt": mt, "groups": groups, "cpb": cpb,
+            "chain_groups": chain_groups, "column_tiles": column_tiles, "nch": nch, "stages": stages, "whole_x": whole_x,
+            "smem_lse": smem_lse, "smem": smem, "blocks_per_sm_lse": per_sm_lse, "blocks_per_sm": per_sm,
+            "row_blocks_lse": _row_blocks(chain_groups, n_tiles, sms * per_sm_lse, 65535),
+            "row_blocks": _row_blocks(column_tiles * groups, n_tiles, sms * per_sm,
+                                      min(65535, TILED_PARTIAL_FLOATS // (c * k * (d + 1)))),
+            "launches": TILED_LAUNCHES_PER_CALL}
+
+
+def categorical_tiled_plan(n, d, c, k, sms):
+    """The tiled pair's plan for ``x (n, d)``, ``c`` chains of ``k`` classes on
+    a card with ``sms`` SMs, any shape: launch 1's ``cpb`` chains a block
+    (``tiled_chains_per_block``), ``chain_groups`` and ``row_blocks_lse``;
+    launch 2's ``column_tiles`` of 80 flat columns, ``groups`` of ``64 * mt``
+    rows of [gbeta; galpha] (``mt`` the least instance that covers a group of
+    at most 7 row tiles, or 4 where 7 do not fit shared memory), ``whole_x``,
+    the ring's ``stages`` and ``row_blocks``; ``nch`` chains a tile touches at
+    most; shared memory and resident blocks of each launch; ``launches`` a
+    call."""
+    return dict(_tiled_plan(n, d, c, k, sms))
 
 
 def categorical_route(n, d, c, k, sms):
-    """The categorical kernel's route for ``x (n, d)`` and ``c`` chains of
-    ``k`` classes, by shape alone: the tensor cores (``route``
-    ``"tensor_cores"`` and ``categorical_tile_plan``'s tile) wherever that
-    plan takes the shape, else the float32 kernel (``categorical_wide_plan``).
-    Never None."""
+    """The categorical kernel's plan for ``x (n, d)`` and ``c`` chains of ``k``
+    classes, by shape alone, on the tensor cores at every shape:
+    ``glm_categorical_kernel`` (``kernel`` ``"single"`` and
+    ``categorical_tile_plan``'s tile) wherever that plan takes the shape,
+    else the tiled pair (``categorical_tiled_plan``).  Never None."""
     plan = categorical_tile_plan(n, d, c, k, sms) if k <= MAX_CLASSES else None
     if plan is not None:
-        return {"route": "tensor_cores", **plan}
-    return categorical_wide_plan(n, d, c, k, sms)
+        return {"route": "tensor_cores", "kernel": "single", **plan}
+    return categorical_tiled_plan(n, d, c, k, sms)
 
 
 def _categorical_thetap(y, x, alpha, beta):
@@ -901,11 +1006,11 @@ def categorical_logit_glm_parts(y, x, alpha, beta):
     classes 1..K, ``x (N, D)``, ``alpha (C, K)``, ``beta (C, D, K)``;
     ``propto=True`` form, valid data assumed.
 
-    CUDA tensors go to a hand-written kernel by ``categorical_route``: the
-    tensor-core kernel, or the float32 one for the shapes the former does not
-    take (``y`` int32, the rest float32, all contiguous, and x and y 16-byte
-    aligned on the tensor-core route, else this raises; the dispatcher lays
-    them out first); CPU tensors go to
+    CUDA tensors go to a hand-written tensor-core kernel by
+    ``categorical_route``: ``glm_categorical_kernel``, or the tiled pair for
+    the shapes the former does not take (``y`` int32, the rest float32, all
+    contiguous, and x and y 16-byte aligned for the former's bulk copies, else
+    this raises; the dispatcher lays them out first); CPU tensors go to
     ``categorical_logit_glm_parts_reference``.
     """
     who = "categorical_logit_glm_parts"
@@ -929,34 +1034,39 @@ def categorical_logit_glm_parts(y, x, alpha, beta):
 
     plan = categorical_route(n, d, c, k, _sm_count(x.device))
     m = c * (1 + k + d * k)
-    with torch.cuda.device(x.device):
-        partials = torch.empty((plan["row_blocks"], m), dtype=torch.float32, device=x.device)
-        out = torch.empty((m,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if plan["route"] == "tensor_cores":
-        _check_aligned(who, [("x", x), ("y", y)])
-        lib = _categorical_library()
-        n_cols, cpt, stages = plan["n_cols"], plan["cpt"], plan["stages"]
-        if lib.glm_categorical_smem_bytes(n_cols, d, cpt, stages) != plan["smem"] or lib.glm_categorical_chains_per_tile(k, n_cols) != cpt:
-            raise RuntimeError(f"{who}: the tile plan disagrees with the kernel's layout")
-        with torch.cuda.device(x.device):
+    lib = _categorical_library()
+    with torch.cuda.device(x.device):
+        out = torch.empty((m,), dtype=torch.float32, device=x.device)
+        if plan["kernel"] == "single":
+            _check_aligned(who, [("x", x), ("y", y)])
+            n_cols, cpt, stages = plan["n_cols"], plan["cpt"], plan["stages"]
+            if lib.glm_categorical_smem_bytes(n_cols, d, cpt, stages) != plan["smem"] or lib.glm_categorical_chains_per_tile(k, n_cols) != cpt:
+                raise RuntimeError(f"{who}: the tile plan disagrees with the kernel's layout")
+            partials = torch.empty((plan["row_blocks"], m), dtype=torch.float32, device=x.device)
             err = lib.glm_categorical_launch(
                 y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
                 n, d, c, k, plan["wgs"], plan["mt"], cpt, stages, plan["row_blocks"], stream,
             )
-        counter = LAUNCHES
-    else:
-        lib = _library()
-        if lib.glm_categorical_wide_smem_bytes(plan["cpt"]) != plan["smem"]:
-            raise RuntimeError(f"{who}: the tile plan disagrees with the float32 kernel's layout")
-        with torch.cuda.device(x.device):
-            err = lib.glm_categorical_wide_launch(
-                y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                n, d, c, k, plan["cpt"], plan["kt"], plan["row_blocks"], stream,
+            counter = LAUNCHES
+        else:
+            mt, rb1, rb2 = plan["mt"], plan["row_blocks_lse"], plan["row_blocks"]
+            stages, whole_x = plan["stages"], int(plan["whole_x"])
+            if (lib.glm_categorical_tiled_smem_bytes(1, plan["cpb"], 0, 0, 0, d) != plan["smem_lse"]
+                    or lib.glm_categorical_tiled_smem_bytes(2, mt, plan["nch"], stages, whole_x, d) != plan["smem"]):
+                raise RuntimeError(f"{who}: the tiled plan disagrees with the kernels' layouts")
+            lse = torch.empty((c, n), dtype=torch.float32, device=x.device)
+            partials = torch.empty((rb1 * c + rb2 * (m - c),), dtype=torch.float32, device=x.device)
+            packed = torch.empty((sum(categorical_packed_floats(n, d, c, k, plan["cpb"])),), dtype=torch.float32,
+                                 device=x.device)
+            err = lib.glm_categorical_tiled_launch(
+                y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), lse.data_ptr(), packed.data_ptr(),
+                partials.data_ptr(), out.data_ptr(), n, d, c, k, mt, plan["groups"], plan["cpb"], rb1, rb2, stages, whole_x,
+                stream,
             )
-        counter = LAUNCHES_FMA
+            counter = LAUNCHES_TILED
     if err != 0:
-        raise RuntimeError(f"glm_categorical kernel launch failed ({plan['route']} route): CUDA error {err}")
+        raise RuntimeError(f"glm_categorical kernel launch failed ({plan['kernel']} kernel): CUDA error {err}")
     counter[CATEGORICAL] += 1
     return out[:c], out[c : c + c * k].view(c, k), out[c + c * k :].view(c, d, k)
 

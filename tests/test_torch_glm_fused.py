@@ -9,6 +9,8 @@ gradients: float32 sums taken in another order).  The CUDA kernel itself is
 compared with the same plain version on the GPU by ``chip_smoke.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -154,33 +156,35 @@ def test_double_backward_raises(family):
     version, so the second derivative equals autograd's through
     ``glm_fused_parts_reference`` (never silent zeros); forward mode
     (``torch.autograd.forward_ad``) reads the tangent off the saved partials
-    and equals the plain version's tangent."""
+    and equals the plain version's tangent.  Both sides in float64 at rtol
+    1e-10: in float32 the comparison rested on the order of the host's sums."""
     extra = EXTRA[family]
-    targs = [tt(A, grad=True), tt(B, grad=True)] + ([] if extra is None else [tt(extra, grad=True)])
-    val = T_CHAINS[family](tt(Y[family]), tt(X), *targs)
+    f64 = functools.partial(tt, dtype=torch.float64)
+    targs = [f64(A, grad=True), f64(B, grad=True)] + ([] if extra is None else [f64(extra, grad=True)])
+    val = T_CHAINS[family](f64(Y[family]), f64(X), *targs)
     (gb,) = torch.autograd.grad(val.sum(), targs[1], create_graph=True)
     got = torch.autograd.grad(gb.sum(), targs)
-    ref = gf.glm_fused_parts_reference(family, tt(Y[family]), tt(X), *targs[:2], targs[2] if extra is not None else None)[0]
+    ref = gf.glm_fused_parts_reference(family, f64(Y[family]), f64(X), *targs[:2], targs[2] if extra is not None else None)[0]
     if family == "normal_id":
         ref = ref - N * torch.log(targs[2])
     elif family == "neg_binomial_2_log":
         phi = targs[2]
-        ref = ref + torch.lgamma(tt(Y[family])[:, None] + phi[None, :]).sum(0) - N * torch.lgamma(phi) + N * phi * torch.log(phi)
+        ref = ref + torch.lgamma(f64(Y[family])[:, None] + phi[None, :]).sum(0) - N * torch.lgamma(phi) + N * phi * torch.log(phi)
     (gb_ref,) = torch.autograd.grad(ref.sum(), targs[1], create_graph=True)
     want = torch.autograd.grad(gb_ref.sum(), targs)
     assert float(got[1].abs().max()) > 0.0
     for g, w in zip(got, want):
-        close(g, w, rtol=1e-5, atol=1e-5)
+        close(g, w, rtol=1e-10, atol=1e-10)
     fwd = torch.autograd.forward_ad
-    tangents = [torch.ones(B.shape), torch.ones(B.shape)]
+    tangents = [torch.ones(B.shape, dtype=torch.float64), torch.ones(B.shape, dtype=torch.float64)]
     with fwd.dual_level():
-        dual = fwd.make_dual(tt(B), tangents[0])
-        got = fwd.unpack_dual(T_CHAINS[family](tt(Y[family]), tt(X), tt(A), dual, *([] if extra is None else [tt(extra)]))).tangent
+        dual = fwd.make_dual(f64(B), tangents[0])
+        got = fwd.unpack_dual(T_CHAINS[family](f64(Y[family]), f64(X), f64(A), dual, *([] if extra is None else [f64(extra)]))).tangent
     with fwd.dual_level():
-        dual = fwd.make_dual(tt(B), tangents[1])
-        ref = gf.glm_fused_parts_reference(family, tt(Y[family]), tt(X), tt(A), dual, tt(extra))[0]
+        dual = fwd.make_dual(f64(B), tangents[1])
+        ref = gf.glm_fused_parts_reference(family, f64(Y[family]), f64(X), f64(A), dual, f64(extra))[0]
         want = fwd.unpack_dual(ref).tangent
-    close(got, want, rtol=1e-5, atol=1e-5)
+    close(got, want, rtol=1e-10, atol=1e-10)
 
 
 def test_wrapper_rejects_bad_operands():

@@ -13,6 +13,8 @@ the kernels (only because the tensors lie on the CPU).  Those are held
   own tests run them (N=3000 and a ragged N=1537, D=7, C=5, K=5), in float32
   at ``rtol=3e-5, atol=1e-3`` on values and ``rtol=3e-4, atol=1e-3`` on
   gradients (float32 sums taken in another order);
+- the categorical one also at (D, K) = (50, 65), N=300, a shape of the tiled
+  categorical kernel, against both JAX forms;
 - for second order, Hessians and a grad-of-grad against ``jax.hessian`` through
   the Pallas path (the twin of ``tests/test_glm_second_order.py``).
 
@@ -144,6 +146,39 @@ def test_chains_dispatcher_vs_vmapped_density_float64(op):
     want = jax.jit(lambda *p: spec["dist"](Y, X.astype(np.float64), *p))(*map(jnp.asarray, p64))
     got = spec["chains"](ty(Y), tt(X, torch.float64), *[tt(p, torch.float64) for p in p64])
     close(got, want, rtol=1e-10, atol=0.0)
+
+
+# A shape of the tiled categorical kernel (more than 64 classes): the plain
+# version the card holds it against, against both JAX forms.
+N_WIDE, D_WIDE, C_WIDE, K_WIDE = 300, 50, 3, 65
+RNG_WIDE = np.random.default_rng(65)
+X_WIDE = RNG_WIDE.normal(size=(N_WIDE, D_WIDE)).astype(np.float32)
+Y_WIDE = RNG_WIDE.integers(1, K_WIDE + 1, N_WIDE).astype(np.int32)
+A_WIDE = (RNG_WIDE.normal(size=(C_WIDE, K_WIDE)) * 0.3).astype(np.float32)
+B_WIDE = (RNG_WIDE.normal(size=(C_WIDE, D_WIDE, K_WIDE)) * 0.1).astype(np.float32)
+
+
+@pytest.mark.parametrize("against", ["xla_float64", "pallas_interpret"])
+def test_wide_categorical_plain_parts_vs_jax(against):
+    """(D, K) = (50, 65): ``categorical_logit_glm_parts_reference`` against
+    ``_categorical_xla_parts`` in float64 at ``rtol=1e-10``, and against the
+    Pallas kernel in interpret mode in float32 with the tolerances above."""
+    params = (A_WIDE, B_WIDE)
+    if against == "xla_float64":
+        p64 = [p.astype(np.float64) for p in params]
+        want = jax.jit(lambda *p: pg._categorical_xla_parts(jnp.asarray(Y_WIDE), jnp.asarray(X_WIDE, jnp.float64), *p))(
+            *map(jnp.asarray, p64))
+        got = gf.categorical_logit_glm_parts_reference(ty(Y_WIDE), tt(X_WIDE, torch.float64), *[tt(p, torch.float64) for p in p64])
+        rtol, atol = 1e-10, 1e-9
+    else:
+        want = jax.jit(lambda *a: pg._categorical_forward(*a, interpret=True))(
+            jnp.asarray(Y_WIDE), jnp.asarray(X_WIDE), *map(jnp.asarray, params))
+        got = gf.categorical_logit_glm_parts_reference(ty(Y_WIDE), tt(X_WIDE), *map(tt, params))
+        rtol, atol = 3e-5, 1e-3
+    assert gf.categorical_route(N_WIDE, D_WIDE, C_WIDE, K_WIDE, 132)["kernel"] == "tiled"
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        close(g, w, rtol=rtol, atol=atol)
 
 
 def test_wrappers_reject_bad_operands():

@@ -29,7 +29,15 @@ It builds, next to the port's kernels (``get_config().kernel_build_dir``):
   printed as clocks per launch;
 - ``tools/chol_inv_block_columnwise.cu``, the column-by-column block kernel the
   panelled one replaced, with its load / factor / inverse / store stamps on
-  the same blocks.
+  the same blocks;
+- a copy of ``csrc/glm_categorical.cu`` with a clock read by thread 0 of
+  block (0, 0, 0) between the phases of the tiled pair's two kernels
+  (launch 1: the slices' wait / product / barrier / request, the window's
+  alpha barrier, eta to shared memory, the sweep; launch 2: the same slices,
+  the tile's lse wait, theta', the window wait, product 2, the barrier at
+  the tile's end), run once at each of the four timed wide shapes (N =
+  100,000, C = 256); printed as clocks per row tile of that block, with its
+  windows and slices.  ``--tiled`` runs this alone.
 
 Each result is one JSON line; the last line is the card's name and power
 limit.  Measurement only: nothing of the port calls these copies.
@@ -55,7 +63,7 @@ CSRC = os.path.join(ROOT, "math_tpu_torch", "csrc")
 OUT = os.path.join(get_config().kernel_build_dir, "probes")
 PROF = (
     "__device__ long long g_prof[16];\n"
-    "#define PROF(i) if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) "
+    "#define PROF(i) if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) "
     "{ long long now_ = clock64(); g_prof[i] += now_ - last_; last_ = now_; }\n"
 )
 READ = (
@@ -98,11 +106,11 @@ BLOCK = [
 ]
 
 
-def instrument(src, anchors):
+def instrument(src, anchors, slots=16):
     """The source with a clock read before each anchor; the names of the phases."""
     text = open(os.path.join(CSRC, src)).read()
     head = text.index("namespace {")
-    text = text[:head] + PROF + text[head:]
+    text = text[:head] + PROF.replace("[16]", f"[{slots}]") + text[head:]
     names = []
     for anchor, name in anchors:
         if anchor not in text:
@@ -114,7 +122,7 @@ def instrument(src, anchors):
             read = f"{indent}PROF({len(names)})\n"
             names.append(name)
         text = text.replace(anchor, read + anchor, 1)
-    return text + READ, names
+    return text + READ.replace("16 * sizeof", f"{slots} * sizeof").replace("z[16]", f"z[{slots}]"), names
 
 
 def nvcc(src, out, shared=True):
@@ -216,11 +224,100 @@ def glm_tc_clocks(names, reps=5):
               flush=True)
 
 
+# The tiled categorical pair: launch 1 (categorical_lse_kernel), then launch 2
+# (categorical_grad_kernel<MT>); anchors written with their leading newline
+# and indent where a shorter indent would match the other kernel first.
+TILED = [
+    ("    RingPlace at(LSE_STAGES);", None),
+    ("        for (int w = 0; w < nwin; ++w) {", "l_tile_end_and_start"),
+    ("            // the window's alpha (the previous window's epilogue", "l_sweep"),
+    ("            float eta[20];\n#pragma unroll\n            for (int e = 0; e < 20; ++e) eta[e] = 0.0f;\n", "l_window_start"),
+    ("\n                mbar_wait(&bars[at.st], at.parity);", "l_slice_top"),
+    ("\n                const float* stage = reinterpret_cast<const float*>(ring + at.st * STAGE_BYTES);", "l_wait"),
+    ("\n                started = true;\n                __syncthreads();  // every thread is done with the stage (and", "l_product_and_request"),
+    ("\n                at.next();\n            }\n            cp_async_wait_all();", "l_slice_barrier"),
+    ("            float a[10];  // alpha of this thread's ten columns", "l_alpha_barrier"),
+    ("            // the (row, chain segment) sweep", "l_eta_to_shared"),
+    ("        __syncthreads();\n        // lse, and lp of each (chain, row), masked past N", "l_sweep_last"),
+    ("    RingPlace at(stages);", None),
+    ("        // --- product 1: eta = x_tile @ beta_tile, a slice at a time", "g_tile_top_and_whole_x"),
+    ("\n            mbar_wait(&bars[at.st], at.parity);", "g_slice_top"),
+    ("\n            const float* stage = reinterpret_cast<const float*>(ring + at.st * RING_STAGE);", "g_wait"),
+    ("\n            started = true;\n            __syncthreads();  // every thread is done with the stage\n", "g_product_1_and_request"),
+    ("\n            at.next();\n        }\n        cp_async_wait_all();", "g_slice_barrier"),
+    ("        // --- theta' = onehot(y)", "g_lse_wait"),
+    ("\n        fence_proxy_async();  // theta' is read by wgmma next\n        __syncthreads();\n        if (!WHOLE_X", "g_thetap_math"),
+    ("        if (!WHOLE_X && wsl > 0) mbar_wait(wbar, (uint32_t)(it & 1));", "g_thetap_fence"),
+    ("        // --- product 2: the group's rows", "g_window_wait"),
+    ("        fence_proxy_async();  // theta' and the window are written again for the next tile", "g_product_2"),
+    ("        if (tid == 0) request_window(it + 1);", "g_tile_end"),
+]
+
+
+def tiled_clocks(reps=2):
+    """The tiled pair's stamped copy at the four timed wide shapes: clocks of
+    block (0, 0, 0) of each launch, per row tile of that block."""
+    src, names = instrument("glm_categorical.cu", TILED, slots=32)
+    path = os.path.join(OUT, "tiled_clocks.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    finish(nvcc(path, os.path.join(OUT, "libtiled_clocks.so")), "tiled_clocks")
+    lib = ctypes.CDLL(os.path.join(OUT, "libtiled_clocks.so"))
+    lib.glm_categorical_tiled_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, c = cs.N_MAIN, cs.C_MAIN
+    for d, k in cs.C1_CATEGORICAL:
+        gen = torch.Generator(device="cuda").manual_seed(700 + d + k)
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        y = torch.randint(1, k + 1, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        alpha = 0.3 * torch.randn((c, k), generator=gen, device="cuda")
+        beta = min(0.1, d ** -0.5) * torch.randn((c, d, k), generator=gen, device="cuda")
+        plan = glm_fused.categorical_tiled_plan(n, d, c, k, sms)
+        rb1, rb2 = plan["row_blocks_lse"], plan["row_blocks"]
+        lse = torch.empty((c, n), device="cuda")
+        packed = torch.empty((sum(glm_fused.categorical_packed_floats(n, d, c, k, plan["cpb"])),), device="cuda")
+        part = torch.empty((rb1 * c + rb2 * c * k * (d + 1),), device="cuda")
+        out = torch.empty((c * (1 + k + d * k),), device="cuda")
+
+        def launch():
+            err = lib.glm_categorical_tiled_launch(
+                y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), lse.data_ptr(), packed.data_ptr(),
+                part.data_ptr(), out.data_ptr(), n, d, c, k, plan["mt"], plan["groups"], plan["cpb"], rb1, rb2,
+                plan["stages"], int(plan["whole_x"]), torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"tiled copy: CUDA error {err}")
+
+        ms = cs.time_ms(launch, warmup=1, reps=2)
+        lib.prof_reset()
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_longlong * 32)()
+        lib.prof_read(buf)
+        n_tiles = -(-n // 64)
+        tiles1, tiles2 = len(range(0, n_tiles, rb1)), len(range(0, n_tiles, rb2))
+        windows = -(-plan["cpb"] * k // glm_fused.TILED_COLUMNS)
+        per = {name: buf[i] / reps / (tiles1 if name.startswith("l_") else tiles2) for i, name in enumerate(names)}
+        print(json.dumps({"phase": "tiled_clocks", "shape": {"n": n, "d": d, "c": c, "k": k}, "plan": plan,
+                          "ms_with_clocks": ms, "windows_per_tile_launch_1": windows,
+                          "slices": -(-d // glm_fused.TILED_DS),
+                          "clocks_per_row_tile_of_block_0": per,
+                          "launch_1_total": sum(v for key, v in per.items() if key.startswith("l_")),
+                          "launch_2_total": sum(v for key, v in per.items() if key.startswith("g_"))}), flush=True)
+        del x, y, alpha, beta, lse, packed, part, out
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("phase_clocks: no GPU", file=sys.stderr)
         sys.exit(2)
     os.makedirs(OUT, exist_ok=True)
+    if "--tiled" in sys.argv[1:]:
+        tiled_clocks()
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip(), flush=True)
+        return
     cat_src, cat_names = instrument("glm_categorical.cu", CATEGORICAL)
     blk_src, blk_names = instrument("chol_inv_block.cu", BLOCK)
     tc_src, tc_names = instrument("glm_fused.cu", GLM_TC)
