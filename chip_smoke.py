@@ -48,7 +48,7 @@ not 0 and no result line is printed):
    with class 1 as reference, dim 204), both written with the public API
    (``make_log_density``, transforms, densities).  The ordered (tensor-core)
    / categorical kernel must have been launched exactly once per gradient call,
-   the float32 kernels and the plain version never; divergences < 5%, finite draws, recovery of the generating
+   the tiled routes and the plain version never; divergences < 5%, finite draws, recovery of the generating
    parameters, and ``logp`` and gradient at 8 final positions against the
    float64 ``dists`` density.
 6. ``gp_path``  again with the counts set to 0 just before and read just
@@ -78,7 +78,7 @@ not 0 and no result line is printed):
 
 The slice of ``sample_nuts`` and the chunked sampler, each path with the counts
 set to 0 just before it and read just after (its kernel launched once per
-gradient call, no other kernel, no float32 kernel, no plain version and no
+gradient call, no other kernel, no tiled route, no plain version and no
 layout copy):
 
 - ``sample_path``: ``sample_nuts`` (per-chain Stan warmup, ``auto_depth=True``)
@@ -103,22 +103,24 @@ kernel's bound is counted for its route (three TF32 tensor-core products),
 with the float32-FMA bound beside it, and ``products_library_ms`` times its
 two products alone as float32 cuBLAS calls; so are kernel 1's four families
 and the ordered kernel (their products as three TF32 products, the core on the
-float32 units).  ``kernels_wide`` holds the float32 kernels, which take the
-shapes the tensor-core layout cannot hold (D > 63, or K > 8 categories),
-against the plain version.  ``wide`` runs every input the dispatchers refused
+float32 units).  ``kernels_wide`` holds B1 / B2's tiled tensor-core route,
+which takes the shapes ``glm_tc_kernel``'s layout cannot hold (D > 63, or K >
+8 categories), against the plain version.  ``wide`` runs every input the dispatchers refused
 before (the four families at D = 282 and 1024, the ordered GLM at D =
 236, K = 5 and D = 1024, K = 12, the categorical at K = 65 and 200, D = 400 and
 D = 212 at K = 41; an x 4 bytes off a 16-byte boundary, a transposed x, an
 int64 y) through the public dispatchers, value and gradients against the
-float64 plain version (the categorical shapes, which take the tiled
-tensor-core pair, also at (7, 65), (320, 5), (700, 3), (330, 30) and (400, 12), and the four at N =
+float64 plain version (every wide shape on a tiled tensor-core route; the
+categorical shapes also at (7, 65), (320, 5), (700, 3), (330, 30) and (400, 12), and the four at N =
 100,000 with C = 8; a ``torch.func.jvp`` through the pair at (50, 65)), and
 times the wide shapes at N = 100,000, C = 256 beside their bounds and the
-two products in float32 cuBLAS (one launch each; the categorical ones one
-warm-up and the median of 3).  The counts are set to 0 before its
-dispatcher calls; the tiled pair's calls there are its launches in the
-``kernels`` line's ninth entry, ``glm_categorical_logit_tiled`` (its time,
-bounds and products at (50, 65), the other three shapes beside).  ``kernels_chol`` prints the block
+two products in float32 cuBLAS (one warm-up and the median of 3 calls
+each).  The counts are set to 0 before its dispatcher calls; the tiled
+routes' calls there are their launches in the ``kernels`` line's ninth and
+tenth entries, ``glm_categorical_logit_tiled`` (its time, bounds and
+products at (50, 65), the other three shapes beside) and
+``glm_fused_tiled`` (B1 / B2: at bernoulli-logit, D = 282, the other nine
+shapes beside).  ``kernels_chol`` prints the block
 kernel's ``clock64`` stamps: how its time splits between factor and inverse.
 
 BASELINE configs 3 and 5 as their benches drive them, after the paths above,
@@ -528,21 +530,30 @@ def compare(family, arrays, grad_atol):
     torch.cuda.synchronize()
     want = glm_fused.glm_fused_parts_reference(family, *on_gpu(arrays, torch.float64))
     plain32 = glm_fused.glm_fused_parts_reference(family, *on_gpu(arrays, torch.float32))
-    errs, plain_errs = {}, {}
-    for name, g, w, p in zip(("logp", "ga", "gb", "ge"), got, want, plain32):
+    names = ("logp", "ga", "gb", "ge")
+    errs = hold_parts(family, got, want, names, grad_atol)
+    return errs, {name: float((p.double() - w).abs().max()) for name, p, w in zip(names, plain32, want) if w is not None}
+
+
+def hold_parts(label, got, want, names, grad_atol):
+    """The gates of ``compare``: each part of the kernel's result float32,
+    finite and of its float64 counterpart's shape (None where that is None);
+    logp within rtol 2e-5, the gradients within rtol 3e-4 and ``grad_atol``.
+    Returns the largest absolute error of each part."""
+    errs = {}
+    for name, g, w in zip(names, got, want):
         if w is None:
-            require(g is None, f"{family}: {name} returned for a family without an extra parameter")
+            require(g is None, f"{label}: {name} returned for a family without an extra parameter")
             continue
-        require(g.shape == w.shape and g.dtype == torch.float32 and bool(torch.isfinite(g).all()), (family, name))
+        require(g.shape == w.shape and g.dtype == torch.float32 and bool(torch.isfinite(g).all()), (label, name))
         rtol, atol = (2e-5, 0.0) if name == "logp" else (3e-4, grad_atol)
         err = (g.double() - w).abs()
         require(bool((err <= atol + rtol * w.abs()).all()), (
-            f"{family} {name}: kernel disagrees with the plain version: max abs err {float(err.max())}, "
+            f"{label} {name}: kernel disagrees with the plain version: max abs err {float(err.max())}, "
             f"max |want| {float(w.abs().max())}, rtol {rtol}, atol {atol}"
         ))
         errs[name] = float(err.max())
-        plain_errs[name] = float((p.double() - w).abs().max())
-    return errs, plain_errs
+    return errs
 
 
 def ragged_atol(n):
@@ -552,10 +563,10 @@ def ragged_atol(n):
 
 def through_tensor_cores(kernel, label, run):
     """``run()`` must launch the tensor-core kernel ``kernel`` once and nothing else."""
-    before = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA))
+    before = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_TILED))
     out = run()
     want = dict(before[0], **{kernel: before[0][kernel] + 1})
-    require(glm_fused.LAUNCHES == want and glm_fused.LAUNCHES_FMA == before[1], f"{label}: not the tensor-core kernel alone")
+    require(glm_fused.LAUNCHES == want and glm_fused.LAUNCHES_TILED == before[1], f"{label}: not the tensor-core kernel alone")
     return out
 
 
@@ -683,38 +694,73 @@ def glm_products_library(x, x1, beta):
     return x1.mT @ (x @ beta)
 
 
-# The shapes the tensor-core layout cannot hold go to the float32 kernels:
-# D > 63; for the ordered one also K > 8, and D 57-63 at K 6-8, whose block
-# does not fit shared memory.
-WIDE_FAMILY = (4099, 96, 70)  # (n, k, c)
-WIDE_ORDERED = [(4099, 70, 40, 5), (4099, 20, 40, 10), (4099, 63, 40, 8)]  # (n, d, c, k)
+# The shapes glm_tc_kernel's layout cannot hold go to the tiled route: D > 63;
+# for the ordered one also K > 8, and D 57-63 at K 6-8, whose block does not
+# fit shared memory; K = 20 takes gcuts in two passes of sixteen cuts.  At N
+# = 20,000 (157 row tiles) a block of launch 1 takes two or three row tiles
+# and one of launch 2 many row chunks, its ring running on across them; C =
+# 200 and 150 give a second column tile of 72 and of 22 chains (launch 1's
+# second warpgroup with and without chains), D = 150 a second feature group
+# of 22 features (launch 2's second warpgroup idle), and D = 150 and 40 a
+# number of slices that the ring's three stages do not divide.
+WIDE_FAMILY = [(4099, 96, 70), (20_000, 150, 200)]  # (n, k, c)
+WIDE_ORDERED = [(4099, 70, 40, 5), (4099, 20, 40, 10), (4099, 63, 40, 8), (4099, 40, 40, 20), (20_000, 150, 150, 12),
+                (20_000, 40, 200, 9)]  # (n, d, c, k)
+
+
+def tiled_route_reach(n, d, c, sms):
+    """What one call of B1 / B2's tiled route at ``(n, d, c)`` exercises,
+    from its plan: the most row tiles a block of launch 1 takes, the most row
+    chunks a block of launch 2 takes, column tiles, feature groups, whether
+    the last column tile leaves launch 1's second warpgroup without chains
+    and the last feature group launch 2's without features, and whether the
+    ring's stages divide the slices of a row tile (the plan is the same for
+    every K)."""
+    plan = glm_fused.glm_tiled_plan(n, d, c, sms)
+    row_tiles = -(-n // glm_fused.GLM_TILED_ROWS)
+    last_chains = c - (plan["column_tiles"] - 1) * glm_fused.GLM_TILED_CHAINS
+    last_features = d - (plan["feature_groups"] - 1) * glm_fused.GLM_TILED_FEATURES
+    return {"tiles_a_block": -(-row_tiles // plan["row_blocks_value"]),
+            "chunks_a_block": -(-4 * row_tiles // plan["row_blocks"]),
+            "column_tiles": plan["column_tiles"], "feature_groups": plan["feature_groups"],
+            "one_warpgroup_launch_1": last_chains <= 64, "one_warpgroup_launch_2": last_features <= 64,
+            "ring_turns_within_tiles": plan["slices"] % glm_fused.GLM_TILED_STAGES != 0}
 
 
 def phase_kernels_wide():
-    """The float32 kernels (every family, and the ordered one) on shapes the
-    tensor-core kernels do not take, against the plain version (float64) with
-    the usual tolerances; the wrapper must have sent each there, by shape."""
+    """B1 / B2's tiled route (every family, and the ordered one) on shapes
+    glm_tc_kernel does not take, against the plain version (float64) with the
+    usual tolerances; the wrapper must have sent each there, by shape, one
+    call each.  Together the shapes reach every branch ``tiled_route_reach``
+    names."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    report = {}
-    n, k, c = WIDE_FAMILY
-    require(glm_fused.glm_tile_plan(n, k, c, sms)["route"] == "fma", "wide family shape: not the float32 route")
-    for i, family in enumerate(glm_fused.FAMILIES):
-        before = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_FMA))
-        errs, _ = compare(family, make_inputs(family, n, k, c, seed=610 + i, scale=0.1), grad_atol=1e-3 * n / 3000.0)
-        require(glm_fused.LAUNCHES == before[0] and glm_fused.LAUNCHES_FMA == dict(before[1], **{family: before[1][family] + 1}),
-                f"wide {family} shape did not go through the float32 kernel alone")
-        report[f"{family}_n{n}_k{k}_c{c}"] = errs
+    report, reach = {}, {}
+    for w, (n, k, c) in enumerate(WIDE_FAMILY):
+        require(glm_fused.glm_tile_plan(n, k, c, sms)["kernel"] == "tiled", "wide family shape: not the tiled route")
+        reach[f"n{n}_d{k}_c{c}"] = tiled_route_reach(n, k, c, sms)
+        for i, family in enumerate(glm_fused.FAMILIES):
+            before = (dict(glm_fused.LAUNCHES), dict(glm_fused.LAUNCHES_TILED))
+            errs, _ = compare(family, make_inputs(family, n, k, c, seed=610 + i + 10 * w, scale=0.1), grad_atol=ragged_atol(n))
+            require(glm_fused.LAUNCHES == before[0]
+                    and glm_fused.LAUNCHES_TILED == dict(before[1], **{family: before[1][family] + 1}),
+                    f"wide {family} shape did not go through the tiled route alone")
+            report[f"{family}_n{n}_k{k}_c{c}"] = errs
     for j, (n, d, c, kk) in enumerate(WIDE_ORDERED):
-        require(glm_fused.glm_tile_plan(n, d, c, sms, kcat=kk)["route"] == "fma", "wide ordered shape: not the float32 route")
-        before = (dict(glm_fused.LAUNCHES), glm_fused.LAUNCHES_FMA[glm_fused.ORDERED])
+        require(glm_fused.glm_tile_plan(n, d, c, sms, kcat=kk)["kernel"] == "tiled", "wide ordered shape: not the tiled route")
+        reach[f"n{n}_d{d}_c{c}_k{kk}"] = tiled_route_reach(n, d, c, sms)
+        before = (dict(glm_fused.LAUNCHES), glm_fused.LAUNCHES_TILED[glm_fused.ORDERED])
         y, xw, *params = ordered_inputs(n, d, c, kk, seed=620 + j, scale=0.1)
         errs, _ = compare_parts("glm_ordered_logistic wide", glm_fused.ordered_logistic_glm_parts,
                                 glm_fused.ordered_logistic_glm_parts_reference, y, [xw, *params], ("logp", "gbeta", "gcuts"),
-                                1e-3 * n / 3000.0)
-        require(glm_fused.LAUNCHES == before[0] and glm_fused.LAUNCHES_FMA[glm_fused.ORDERED] == before[1] + 1,
-                "wide ordered shape did not go through the float32 kernel alone")
+                                ragged_atol(n))
+        require(glm_fused.LAUNCHES == before[0] and glm_fused.LAUNCHES_TILED[glm_fused.ORDERED] == before[1] + 1,
+                "wide ordered shape did not go through the tiled route alone")
         report[f"ordered_n{n}_d{d}_c{c}_k{kk}"] = errs
-    emit("kernels_wide", abs_err=report)
+    for key in ("one_warpgroup_launch_1", "one_warpgroup_launch_2", "ring_turns_within_tiles"):
+        require({r[key] for r in reach.values()} == {True, False}, f"kernels_wide: no shape with and without {key}")
+    require(max(r["tiles_a_block"] for r in reach.values()) > 1 and max(r["column_tiles"] for r in reach.values()) > 1
+            and max(r["feature_groups"] for r in reach.values()) > 1, f"kernels_wide: shapes reach too little: {reach}")
+    emit("kernels_wide", abs_err=report, reach=reach)
     return report
 
 
@@ -836,21 +882,20 @@ def phase_main_path(x, y, beta_true, entries):
     launches_sampler = dict(glm_fused.LAUNCHES)
     driven = drive_other_families(x_gpu)
     launches = dict(glm_fused.LAUNCHES)
-    launches_fma = dict(glm_fused.LAUNCHES_FMA)
+    launches_tiled = dict(glm_fused.LAUNCHES_TILED)
     plain_calls = dict(glm_fused.PLAIN_CALLS)
     layout_copies = dict(glm_fused.LAYOUT_COPIES)
 
     require(launches_sampler["bernoulli_logit"] == res.n_grad_calls > 0, (launches_sampler, res.n_grad_calls))
     require(all(v == 0 for v in layout_copies.values()), f"the dispatchers copied x or y on the main path: {layout_copies}")
-    require(all(v == 0 for v in launches_fma.values()), f"a float32 kernel ran on the main path: {launches_fma}")
-    require(not any(glm_fused.LAUNCHES_TILED.values()), f"the tiled categorical pair ran on the main path: {glm_fused.LAUNCHES_TILED}")
+    require(not any(launches_tiled.values()), f"a tiled route ran on the main path: {launches_tiled}")
     require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the main path: {plain_calls}")
     for e in entries:
         family = e["name"][len("glm_fused["):-1]
         e["launches"] = launches[family]
         require(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     others = check_other_families(x_gpu, driven)
-    emit("main_path", **report, kernel_launches=launches, fma_kernel_launches=launches_fma, plain_calls=plain_calls,
+    emit("main_path", **report, kernel_launches=launches, tiled_launches=launches_tiled, plain_calls=plain_calls,
          layout_copies=layout_copies, other_families=others)
     return res
 
@@ -955,18 +1000,8 @@ def compare_parts(label, kernel, plain, y, floats, names, grad_atol):
     torch.cuda.synchronize()
     want = plain(*with_y(y, floats, torch.float64))
     plain32 = plain(*with_y(y, floats, torch.float32))
-    errs, plain_errs = {}, {}
-    for name, g, w, p in zip(names, got, want, plain32):
-        require(g.shape == w.shape and g.dtype == torch.float32 and bool(torch.isfinite(g).all()), (label, name))
-        rtol, atol = (2e-5, 0.0) if name == "logp" else (3e-4, grad_atol)
-        err = (g.double() - w).abs()
-        require(bool((err <= atol + rtol * w.abs()).all()), (
-            f"{label} {name}: kernel disagrees with the plain version: max abs err {float(err.max())}, "
-            f"max |want| {float(w.abs().max())}, rtol {rtol}, atol {atol}"
-        ))
-        errs[name] = float(err.max())
-        plain_errs[name] = float((p.double() - w).abs().max())
-    return errs, plain_errs
+    errs = hold_parts(label, got, want, names, grad_atol)
+    return errs, {name: float((p.double() - w).abs().max()) for name, p, w in zip(names, plain32, want)}
 
 
 def phase_kernels_ordered_categorical(x_main):
@@ -1066,8 +1101,8 @@ def phase_kernels_ordered_categorical(x_main):
     return entries
 
 
-# The inputs the dispatchers once refused: shapes the tensor-core layouts do
-# not hold, which the float32 kernels take (all four families at D = 282 and
+# The inputs the dispatchers once refused: shapes the first tensor-core
+# kernels do not hold, which the tiled routes take (all four families at D = 282 and
 # 1024; the ordered one at D = 236, K = 5 and D = 1024, K = 12; the
 # categorical one at K = 65 and 200 with D = 50, D = 400 at K = 5 and D = 212
 # at K = 41), and layouts the dispatchers lay out (x[1:] with an odd D, so 4
@@ -1150,10 +1185,6 @@ def glm_plan(kind, n, d, c, k):
     return glm_fused.glm_tile_plan(n, d, c, sms, kcat=k if kind == "ordered" else None)
 
 
-def glm_route(kind, n, d, c, k):
-    return glm_plan(kind, n, d, c, k)["route"]
-
-
 def dispatch_against_float64(label, kind, y_np, x32, params_np, layout=None):
     """One call of the public dispatcher on the card (float32), value and
     gradients by autograd, against the float64 plain version on the same
@@ -1182,19 +1213,19 @@ def dispatch_against_float64(label, kind, y_np, x32, params_np, layout=None):
         x = x32.mT.contiguous().mT
         require(not x.is_contiguous(), f"{label}: x is contiguous")
     params = [torch.tensor(p, dtype=torch.float32, device="cuda").requires_grad_(True) for p in params_np]
-    counts = lambda: tuple(dict(t) for t in (glm_fused.LAUNCHES, glm_fused.LAUNCHES_FMA, glm_fused.LAUNCHES_TILED,  # noqa: E731
-                                             glm_fused.PLAIN_CALLS, glm_fused.LAYOUT_COPIES))
+    counts = lambda: tuple(dict(t) for t in (glm_fused.LAUNCHES, glm_fused.LAUNCHES_TILED, glm_fused.PLAIN_CALLS,  # noqa: E731
+                                             glm_fused.LAYOUT_COPIES))
     before = counts()
     val = glm_dispatcher(kind)(y, x, *params)
     grads = torch.autograd.grad(val.sum(), params)
     torch.cuda.synchronize()
     after = counts()
-    counter = 2 if tiled else (0 if route == "tensor_cores" else 1)  # which of LAUNCHES, LAUNCHES_FMA, LAUNCHES_TILED
-    want = [dict(b, **({key: b[key] + 1} if i == counter else {})) for i, b in enumerate(before[:3])]
-    require(list(after[:3]) == want, f"{label}: not one launch of the {route} kernel{' (tiled)' if tiled else ''}")
-    require(after[3] == before[3], f"{label}: the plain version ran on a CUDA tensor")
-    require(after[4] == dict(before[4], **{key: before[4][key] + (1 if layout else 0)}),
-            f"{label}: layout copies {after[4]} against {before[4]}")
+    counter = 1 if tiled else 0  # which of LAUNCHES, LAUNCHES_TILED
+    want = [dict(b, **({key: b[key] + 1} if i == counter else {})) for i, b in enumerate(before[:2])]
+    require(list(after[:2]) == want, f"{label}: not one call of the {plan['kernel']} tensor-core kernel")
+    require(after[2] == before[2], f"{label}: the plain version ran on a CUDA tensor")
+    require(after[3] == dict(before[3], **{key: before[3][key] + (1 if layout else 0)}),
+            f"{label}: layout copies {after[3]} against {before[3]}")
     p64 = [torch.tensor(p, dtype=torch.float64, device="cuda").requires_grad_(True) for p in params_np]
     y64 = torch.as_tensor(y_np, device="cuda")
     y64 = y64.to(torch.int32) if kind in ("ordered", "categorical") else y64.to(torch.float64)
@@ -1210,8 +1241,7 @@ def dispatch_against_float64(label, kind, y_np, x32, params_np, layout=None):
             f"{label} {name}: dispatcher disagrees with the float64 plain version: max abs err {float(err.max())}, "
             f"max |want| {float(w.abs().max())}, rtol {rtol}, atol {atol}"))
         errs[name] = float(err.max())
-    return {"route": route, **({"kernel": plan["kernel"]} if kind == "categorical" else {}),
-            "n": n, "d": d, "c": c, "k": k, "abs_err": errs}
+    return {"route": route, "kernel": plan["kernel"], "n": n, "d": d, "c": c, "k": k, "abs_err": errs}
 
 
 def wide_bound(kind, n, d, c, k):
@@ -1255,12 +1285,12 @@ def median_ms(fn, warmup, reps):
 
 
 def time_wide(kind, d, k, x_main):
-    """The kernel of one wide shape at N = 100,000, C = 256, beside its bound
-    and the two products alone in float32 cuBLAS (timing only).  The families
-    and the ordered GLM (float32 kernels): one launch each.  The categorical
-    one (the tiled tensor-core pair): one warm-up and the median of 3 calls,
-    the products likewise, its bound that of three TF32 products (the FP32
-    bound beside it)."""
+    """The tiled tensor-core route of one wide shape at N = 100,000, C = 256
+    (B1 / B2's five launches a call, or the categorical pair's five): one
+    warm-up and the median of 3 calls by CUDA events, beside its bound (three
+    TF32 products, the core on the float32 units or the bytes; the FP32-FMA
+    and bytes bounds beside it) and the two products alone in float32 cuBLAS,
+    timed alike (timing only)."""
     n, c = N_MAIN, C_MAIN
     gen = torch.Generator(device="cuda").manual_seed(700 + d + (k or 0))
     x = x_main if d == x_main.shape[1] else torch.randn((n, d), generator=gen, device="cuda")
@@ -1271,37 +1301,41 @@ def time_wide(kind, d, k, x_main):
     params = [torch.tensor(p, device="cuda") for p in params]
     if kind == "ordered":
         fn = lambda: glm_fused.ordered_logistic_glm_parts(y, x, *params)  # noqa: E731
-        bmat = params[0]
+        bmat, cols, core = params[0], d, ordered_core_ops(k)
     elif kind == "categorical":
         fn = lambda: glm_fused.categorical_logit_glm_parts(y, x, *params)  # noqa: E731
-        bmat = params[1].permute(1, 0, 2).reshape(d, c * k)
+        bmat, cols, core = params[1].permute(1, 0, 2).reshape(d, c * k), d * k, categorical_core_ops(k)
     else:
         fn = lambda: glm_fused.glm_fused_parts(kind, y, x, *params[:2], params[2] if len(params) > 2 else None)  # noqa: E731
-        bmat = params[1]
+        bmat, cols, core = params[1], d, CORE_OPS[kind]
     x1 = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
     products = lambda: glm_products_library_rows(x, x1, bmat)  # noqa: E731
     bound = wide_bound(kind, n, d, c, k)
-    extra = {}
-    if kind == "categorical":
-        plan = glm_plan(kind, n, d, c, k)
-        require(plan["route"] == "tensor_cores" and plan["kernel"] == "tiled", f"categorical d{d} k{k}: not the tiled pair")
-        ms, reps = median_ms(fn, warmup=1, reps=3)
-        library_ms, library_reps = median_ms(products, warmup=1, reps=3)
-        tc = tensor_core_bounds(n, d * k, c, categorical_core_ops(k), bound["flops"], bound["bytes"])
-        extra = {"reps_ms": reps, "products_reps_ms": library_reps, "bound_fp32_ms": bound["bound_ms"],
-                 "bound_tensor_ms": tc["bound_tensor_ms"], "launches_per_call": plan["launches"],
-                 "tf32_tflops": 3.0 * 4.0 * n * d * c * k / (ms * 1e-3) / 1e12,
-                 "plan": {key: plan[key] for key in ("mt", "groups", "cpb", "column_tiles", "whole_x", "stages",
-                                                     "row_blocks_lse", "row_blocks")}}
-        bound = {**bound, "bound_ms": tc["bound_ms"], "bound_by": tc["bound_by"]}
-    else:
-        require(glm_route(kind, n, d, c, k) == "fma", f"{kind} d{d} k{k}: not the float32 route at N={n}, C={c}")
-        ms = time_ms(fn, warmup=0, reps=1)
-        library_ms = time_ms(products, warmup=0, reps=1)
+    plan = glm_plan(kind, n, d, c, k)
+    require(plan["route"] == "tensor_cores" and plan["kernel"] == "tiled", f"{kind} d{d} k{k}: not the tiled route")
+    ms, reps = median_ms(fn, warmup=1, reps=3)
+    library_ms, library_reps = median_ms(products, warmup=1, reps=3)
+    tc = tensor_core_bounds(n, cols, c, core, bound["flops"], bound["bytes"])
     del x1, bmat
-    require(bound["bound_ms"] <= ms, f"{kind} d{d} k{k}: {ms} ms beats its bound {bound['bound_ms']} ms")
-    return {"kind": kind, "n": n, "d": d, "c": c, "k": k, "ms": ms, **bound,
-            "fp32_tflops": bound["flops"] / (ms * 1e-3) / 1e12, "products_library_ms": library_ms, **extra}
+    abs_err = None
+    if kind != "categorical":
+        # B1 / B2's timed call against float64: here a block of launch 1 takes a dozen row tiles, two column
+        # tiles of 128 chains, up to eight feature groups of launch 2, each block many row chunks
+        names = ("logp", "gbeta", "gcuts") if kind == "ordered" else ("logp", "ga", "gb", "ge")
+        p64 = [p.double() for p in params]
+        if kind == "ordered":
+            want = glm_fused.ordered_logistic_glm_parts_reference(y, x.double(), *p64)
+        else:
+            want = glm_fused.glm_fused_parts_reference(kind, y.double(), x.double(), *p64[:2], p64[2] if len(p64) > 2 else None)
+        abs_err = hold_parts(f"{kind} d{d} k{k} timed", fn(), want, names, ragged_atol(n))
+        del want, p64
+    require(tc["bound_ms"] <= ms, f"{kind} d{d} k{k}: {ms} ms beats its bound {tc['bound_ms']} ms")
+    return {"kind": kind, "n": n, "d": d, "c": c, "k": k, "ms": ms, "reps_ms": reps, **bound,
+            "bound_ms": tc["bound_ms"], "bound_by": tc["bound_by"], "bound_fp32_ms": bound["bound_ms"],
+            "bound_tensor_ms": tc["bound_tensor_ms"], "bound_bytes_ms": tc["bound_bytes_ms"],
+            "fp32_tflops": bound["flops"] / (ms * 1e-3) / 1e12, "tf32_tflops": 3.0 * 4.0 * n * cols * c / (ms * 1e-3) / 1e12,
+            "products_library_ms": library_ms, "products_reps_ms": library_reps, "launches_per_call": plan["launches"],
+            "plan": {key: v for key, v in plan.items() if isinstance(v, (int, bool))}, "abs_err": abs_err}
 
 
 def categorical_jvp(d, k):
@@ -1353,11 +1387,11 @@ def phase_wide(x_main):
         _, params = glm_params(kind, d, c, k, seed=820 + i, scale=min(0.1, 1.0 / math.sqrt(d)))
         label = f"{kind}_d{d}" + (f"_k{k}" if k else "") + (f"_n{n}_c{c}" if (n, c) != (C1_N, C1_C) else "")
         checks[label] = dispatch_against_float64(label, kind, y, x, params)
-        if kind == "categorical":
-            require(checks[label].get("kernel") == "tiled", f"{label}: a wide categorical shape must take the tiled tensor-core pair")
-        else:
-            require(checks[label]["route"] == "fma", f"{label}: a wide shape must take the float32 route")
+        require(checks[label]["kernel"] == "tiled", f"{label}: a wide shape must take a tiled tensor-core route")
         del x
+    glm_launches = sum(glm_fused.LAUNCHES_TILED[f] for f in glm_fused.FAMILIES + (glm_fused.ORDERED,))
+    glm_cases = sum(kind != "categorical" for kind, *_ in cases)
+    require(glm_launches == glm_cases, f"B1 / B2's tiled route: {glm_launches} calls for {glm_cases}")
     tiled_launches = glm_fused.LAUNCHES_TILED[glm_fused.CATEGORICAL]
     require(tiled_launches == len(cat_shapes), f"the tiled pair: {tiled_launches} calls for {len(cat_shapes)}")
     jvp = categorical_jvp(*C1_CATEGORICAL[0])  # its counts from 0 (count_launches): one call of the pair
@@ -1371,18 +1405,61 @@ def phase_wide(x_main):
         for layout in C1_LAYOUTS:
             label = f"{kind}_{layout}"
             checks[label] = dispatch_against_float64(label, kind, y, x, params, layout=layout)
-            require(checks[label]["route"] == "tensor_cores" and checks[label].get("kernel", "single") == "single",
-                    f"{label}: the layout inputs must take the first tensor-core route")
+            require(checks[label]["route"] == "tensor_cores" and checks[label]["kernel"] == "single",
+                    f"{label}: the layout inputs must take the first tensor-core kernel")
     for kind, d, k in C1_SHAPES:
         timings.append(time_wide(kind, d, k, x_full))
         torch.cuda.empty_cache()
-    require(glm_fused.LAUNCHES_FMA[glm_fused.CATEGORICAL] == 0, "a float32 categorical launch")
-    tiled_checks = {lab: v for lab, v in checks.items() if v.get("kernel") == "tiled"}
+    tiled_checks = {lab: v for lab, v in checks.items() if v["kernel"] == "tiled" and lab.startswith("categorical")}
     tiled_entry = tiled_categorical_entry(x_full, tiled_launches, tiled_checks, jvp,
                                           [t for t in timings if t["kind"] == "categorical"])
+    glm_checks = {lab: v for lab, v in checks.items() if v["kernel"] == "tiled" and not lab.startswith("categorical")}
+    glm_entry = glm_tiled_entry(glm_launches, glm_checks, [t for t in timings if t["kind"] != "categorical"])
     emit("wide", inputs=checks, timed=timings, categorical_jvp=jvp, tiled_launches=tiled_launches,
+         glm_tiled_launches=glm_launches,
          tolerance={"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": "1e-3 * max(1, N / 3000)"})
-    return checks, timings, tiled_entry
+    return checks, timings, tiled_entry, glm_entry
+
+
+def glm_tiled_entry(launches, checks, timed):
+    """The ``kernels`` line's entry of B1 / B2's tiled route: its time, bounds
+    and products at bernoulli-logit, D = 282, N = 100,000, C = 256, the plain
+    version's time there (one call, on the same inputs as ``time_wide``'s),
+    the other timed shapes beside, its launches (calls of the route, five
+    launches each) from the ``wide`` dispatcher calls, and the largest error
+    of those calls and of the timed ones against the float64 plain version."""
+    main = next(t for t in timed if t["kind"] == "bernoulli_logit" and t["d"] == C1_FAMILY_D[0])
+    n, d, c = main["n"], main["d"], main["c"]
+    x = torch.randn((n, d), generator=torch.Generator(device="cuda").manual_seed(700 + d), device="cuda")
+    y = torch.as_tensor(glm_y("bernoulli_logit", n, None, seed=710 + d), device="cuda").to(torch.float32)
+    _, params = glm_params("bernoulli_logit", d, c, None, seed=720 + d, scale=min(0.1, 1.0 / math.sqrt(d)))
+    alpha, beta = [torch.tensor(p, device="cuda") for p in params]
+    plain_ms = time_ms(lambda: glm_fused.glm_fused_parts_reference("bernoulli_logit", y, x, alpha, beta), warmup=0, reps=1)
+    del x, alpha, beta
+    torch.cuda.empty_cache()
+    return {
+        "name": "glm_fused_tiled",
+        "route": "cuda",
+        "source": "math_tpu_torch/csrc/glm_fused.cu",
+        "replaces": REPLACES,
+        "also_replaces": "math_tpu/ops/pallas_glm.py:459",
+        "launches": launches,
+        "launches_per_call": main["launches_per_call"],
+        "max_abs_err": max(max(v["abs_err"].values()) for v in list(checks.values()) + timed),
+        "ms": main["ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no one PyTorch call computes this function with its gradients
+        "shape": {"kind": main["kind"], "n": n, "d": d, "c": c},
+        "bound_fp32_ms": main["bound_fp32_ms"],
+        "products_library_ms": main["products_library_ms"],
+        "timed": [{key: t[key] for key in ("kind", "d", "k", "ms", "reps_ms", "bound_ms", "bound_fp32_ms", "bound_bytes_ms",
+                                           "products_library_ms", "products_reps_ms", "launches_per_call", "tf32_tflops",
+                                           "plan", "abs_err")} for t in timed],
+        "abs_err": {lab: v["abs_err"] for lab, v in checks.items()},
+        "tolerance": {"logp_rtol": 2e-5, "grad_rtol": 3e-4, "grad_atol": "1e-3 * max(1, N / 3000)"},
+    }
 
 
 def tiled_categorical_entry(x_full, launches, checks, jvp, timed):
@@ -1591,14 +1668,13 @@ def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
         device="cuda", dtype=torch.float32, tol=tol,
     )
     launches = dict(glm_fused.LAUNCHES)
-    launches_fma = dict(glm_fused.LAUNCHES_FMA)
+    launches_tiled = dict(glm_fused.LAUNCHES_TILED)
     plain_calls = dict(glm_fused.PLAIN_CALLS)
     layout_copies = dict(glm_fused.LAYOUT_COPIES)
     require(launches[family] == res.n_grad_calls > 0, f"{launches[family]} launches for {res.n_grad_calls} gradient calls")
     require(all(v == 0 for v in layout_copies.values()), f"the dispatchers copied x or y on the {label}: {layout_copies}")
     require(all(v == 0 for f, v in launches.items() if f != family), f"another kernel ran: {launches}")
-    require(all(v == 0 for v in launches_fma.values()), f"a float32 kernel ran on the {label}: {launches_fma}")
-    require(not any(glm_fused.LAUNCHES_TILED.values()), f"the tiled categorical pair ran on the {label}: {glm_fused.LAUNCHES_TILED}")
+    require(not any(launches_tiled.values()), f"a tiled route ran on the {label}: {launches_tiled}")
     require(all(v == 0 for v in plain_calls.values()), f"the plain version ran on the {label}: {plain_calls}")
     entry["launches"] = launches[family]
     z_final = res.position[:8, -1, :].contiguous()
@@ -1610,7 +1686,7 @@ def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
                "max_abs_mean_err_vs_map": float((draws[name].double().mean((0, 1)) - v).abs().max())}
         for name, v in theta_map.items()
     }
-    emit(label, **report, kernel_launches=launches[family], fma_kernel_launches=launches_fma, plain_calls=plain_calls,
+    emit(label, **report, kernel_launches=launches[family], tiled_launches=launches_tiled, plain_calls=plain_calls,
          layout_copies=layout_copies, vs_float64_at_8_final_positions=check,
          float64_map=map_report)
     return res, model, (xt, yt), report
@@ -1625,13 +1701,13 @@ def phase_glm_path(label, family, entry, drive, reference, x, data, tol):
 
 def only_kernel(label, family, grad_calls):
     """After a path: ``family``'s tensor-core kernel launched once per gradient
-    call and nothing else: no other kernel, no float32 kernel, no plain
-    version, no layout copy."""
+    call and nothing else: no other kernel, no tiled route, no plain version,
+    no layout copy."""
     launches = dict(glm_fused.LAUNCHES)
     require(launches[family] == grad_calls > 0, f"{label}: {launches[family]} launches for {grad_calls} gradient calls")
     require(all(v == 0 for f, v in launches.items() if f != family), f"{label}: another kernel ran: {launches}")
-    for name, counts in (("float32 kernel", glm_fused.LAUNCHES_FMA), ("tiled categorical pair", glm_fused.LAUNCHES_TILED),
-                         ("plain version", glm_fused.PLAIN_CALLS), ("layout copy", glm_fused.LAYOUT_COPIES)):
+    for name, counts in (("tiled route", glm_fused.LAUNCHES_TILED), ("plain version", glm_fused.PLAIN_CALLS),
+                         ("layout copy", glm_fused.LAYOUT_COPIES)):
         require(all(v == 0 for v in counts.values()), f"{label}: a {name} ran: {dict(counts)}")
     return launches[family]
 
@@ -3371,8 +3447,7 @@ def phase_censored_nb_path(x):
     no plain version, no layout copy."""
     res, wall, model, args, data, lentz = drive_censored_nb(x)
     launches = dict(glm_fused.LAUNCHES)
-    others = {**chol_blocked.LAUNCHES, **lv_rk4.LAUNCHES, **glm_fused.LAUNCHES_FMA,
-              **{f"{f}_tiled": n for f, n in glm_fused.LAUNCHES_TILED.items()},
+    others = {**chol_blocked.LAUNCHES, **lv_rk4.LAUNCHES, **{f"{f}_tiled": n for f, n in glm_fused.LAUNCHES_TILED.items()},
               **{f: n for f, n in launches.items() if f != NB_FAMILY}}
     plain, copies = sum(glm_fused.PLAIN_CALLS.values()), sum(glm_fused.LAYOUT_COPIES.values())
     require(launches[NB_FAMILY] == res.n_grad_calls > 0,
@@ -3710,13 +3785,13 @@ def phase_postfit_glm(x, y, position, b1_entry):
     chol_blocked.reset_counts()
     references, evaluations, wall, map_theta = drive_postfit_glm(x, y, position)
     launches = dict(glm_fused.LAUNCHES)
-    plain, copies, fma = dict(glm_fused.PLAIN_CALLS), dict(glm_fused.LAYOUT_COPIES), dict(glm_fused.LAUNCHES_FMA)
+    plain, copies, tiled = dict(glm_fused.PLAIN_CALLS), dict(glm_fused.LAYOUT_COPIES), dict(glm_fused.LAUNCHES_TILED)
     chol_launches = chol_blocked.LAUNCHES[chol_blocked.KERNEL]
     chol_plain = chol_blocked.PLAIN_CALLS[chol_blocked.KERNEL]
     total = sum(evaluations.values())
     require(launches["bernoulli_logit"] == total, f"B1 launches {launches} against {evaluations} evaluations")
     require(plain["bernoulli_logit"] == 1 and sum(plain.values()) == 1, f"plain-version calls {plain}")
-    require(all(v == 0 for v in copies.values()) and all(v == 0 for v in fma.values()), (copies, fma))
+    require(all(v == 0 for v in copies.values()) and all(v == 0 for v in tiled.values()), (copies, tiled))
     require(chol_launches == 1 and chol_plain == 0, f"B4: {chol_launches} launches, {chol_plain} plain calls; "
             "one Laplace factorisation expected")
     report = references()
@@ -3765,7 +3840,6 @@ def count_launches(fn):
     out = fn()
     torch.cuda.synchronize()
     launches = {**{k: v for k, v in glm_fused.LAUNCHES.items() if v}, **{k: v for k, v in chol_blocked.LAUNCHES.items() if v},
-                **{f"{k}_fma": v for k, v in glm_fused.LAUNCHES_FMA.items() if v},
                 **{f"{k}_tiled": v for k, v in glm_fused.LAUNCHES_TILED.items() if v}}
     plain = {**{k: v for k, v in glm_fused.PLAIN_CALLS.items() if v}, **{k: v for k, v in chol_blocked.PLAIN_CALLS.items() if v}}
     return out, launches, plain
@@ -4180,7 +4254,7 @@ def main():
     chol_entry = phase_kernels_chol(gp_regression.synthetic_data(N_GP, seed=0)[0])
     ord_entry, cat_entry = phase_kernels_ordered_categorical(x)
     phase_kernels_wide()
-    _, _, tiled_entry = phase_wide(x)
+    _, _, tiled_entry, glm_tiled = phase_wide(x)
     lv_entry = phase_kernels_lv()
     chol_entry["small_shapes"] = phase_kernels_chol_small()
     worker = start_worker([os.path.abspath(__file__), "--worker"] + (["--profile"] if profiling else []))
@@ -4212,8 +4286,8 @@ def main():
     nb_entry = next(e for e in entries if e["name"] == f"glm_fused[{NB_FAMILY}]")
     nb_entry["launches"] += result["nb_launches"]
     nb_entry["censored_nb_path"] = {"launches": result["nb_launches"], **result["nb_at_path"]}
-    entries.append(tiled_entry)
-    require(len(entries) == 9, f"{len(entries)} kernel entries")
+    entries += [tiled_entry, glm_tiled]
+    require(len(entries) == 10, f"{len(entries)} kernel entries")
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
     emit("script", seconds=time.perf_counter() - START, limit_s=1200)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -87,15 +87,17 @@
 namespace {
 
 using namespace tf32x3;
+using glm_common::allow_smem;
+using glm_common::MAX_SMEM;
 using glm_common::request_row_tile;
+using glm_common::RingPlace;
+using glm_common::up128;
 
 constexpr int TM = 64;        // rows per tile
 
 struct Layout {
     size_t beta_hi, beta_lo, th_hi, th_lo, xs, ys, alpha, lps, lpacc, bars, total;
 };
-
-__host__ __device__ inline size_t up128(size_t b) { return (b + 127) & ~(size_t)127; }
 
 __host__ __device__ inline Layout layout_of(int ncols_, int d, int cpt, int stages) {
     const size_t ncols = (size_t)ncols_;
@@ -545,7 +547,6 @@ constexpr int EB = NC + 4;    // row stride (floats) of launch 1's eta tile: the
 constexpr int LSE_STAGES = 2;   // launch 1's ring of slices: two blocks share an SM
 constexpr int MAX_GRAD_STAGES = 4;  // launch 2's, as its plan chooses
 constexpr int MAX_CPB = 16;     // chains of a block of launch 1 at most
-constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory one block may take on sm_90
 constexpr uint32_t BETA_SLICE_BYTES = 2 * NC * DS * 4;  // beta hi, then lo, K-major (NC x DS)
 constexpr uint32_t X_SLICE_BYTES = TM * XS * 4;         // x (TM x XS), row-major
 constexpr size_t STAGE_BYTES = (size_t)BETA_SLICE_BYTES + X_SLICE_BYTES;
@@ -682,19 +683,6 @@ __device__ __forceinline__ void request_slice(unsigned char* dst, uint64_t* bar,
     bulk_copy(dst, pbeta + vb * (2 * NC * DS), BETA_SLICE_BYTES, bar);
     if (px) bulk_copy(dst + BETA_SLICE_BYTES, px + vx * (TM * XS), X_SLICE_BYTES, bar);
 }
-
-// A consumer's place in a ring of stages: the stage and its barrier's parity.
-struct RingPlace {
-    int stages, st = 0;
-    uint32_t parity = 0;
-    __device__ __forceinline__ explicit RingPlace(int s) : stages(s) {}
-    __device__ __forceinline__ void next() {
-        if (++st == stages) {
-            st = 0;
-            parity ^= 1u;
-        }
-    }
-};
 
 // Launch 1's sweep of a window: per (row, chain segment) the maximum and the
 // sum of exponentials of its logits in eb (LANES threads a segment, joined
@@ -1190,8 +1178,7 @@ extern "C" int glm_categorical_launch(const void* y, const void* x, const void* 
     cudaError_t err = cudaErrorInvalidValue;
 #define GLM_CATEGORICAL_CASE(WGS_, MT_)                                                                          \
     if (wgs == WGS_ && mt == MT_) {                                                                              \
-        err = cudaFuncSetAttribute(glm_categorical_kernel<WGS_, MT_>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                                   (int)smem);                                                                   \
+        err = allow_smem((const void*)glm_categorical_kernel<WGS_, MT_>, smem);                                  \
         if (err == cudaSuccess) {                                                                                \
             glm_categorical_kernel<WGS_, MT_><<<grid, 128 * WGS_, smem, stream>>>(yi, xf, af, bf, n, d, c, kcls, cpt, \
                                                                                  stages, pf);                    \
@@ -1259,7 +1246,7 @@ extern "C" int glm_categorical_tiled_launch(const void* y, const void* x, const 
         static_cast<const float*>(x), static_cast<const float*>(beta), n, d, c, kcls, cpb, pbeta2, pbeta1, px);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(categorical_lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    err = allow_smem((const void*)categorical_lse_kernel, smem1);
     if (err != cudaSuccess) return (int)err;
     categorical_lse_kernel<<<dim3((c + cpb - 1) / cpb, row_blocks_lse), THREADS, smem1, stream>>>(
         yi, af, pbeta1, px, n, d, c, kcls, cpb, lf, part1);
@@ -1268,8 +1255,7 @@ extern "C" int glm_categorical_tiled_launch(const void* y, const void* x, const 
     err = cudaErrorInvalidValue;
 #define GLM_CATEGORICAL_TILED_CASE(MT_, WHOLE_)                                                                     \
     if (mt == MT_ && (whole_x != 0) == WHOLE_) {                                                                    \
-        err = cudaFuncSetAttribute(categorical_grad_kernel<MT_, WHOLE_>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                                   (int)smem2);                                                                     \
+        err = allow_smem((const void*)categorical_grad_kernel<MT_, WHOLE_>, smem2);                                   \
         if (err == cudaSuccess) {                                                                                   \
             categorical_grad_kernel<MT_, WHOLE_><<<dim3((unsigned)tiles, row_blocks, groups), THREADS, smem2, stream>>>( \
                 yi, af, pbeta2, px, lf, n, d, c, kcls, nch, stages, part2);                                         \

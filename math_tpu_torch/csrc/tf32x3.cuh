@@ -1,6 +1,6 @@
 // Float32-accurate products on Hopper's tensor cores: the 3xTF32 split, the
-// wgmma wrappers (m64n40k8 with A from registers; m64n64k8 with A from
-// registers or from shared memory; m64n32k8 with A from shared memory), the
+// wgmma wrappers (m64n40k8 with A from registers; m64n64k8 and m64n128k8 with
+// A from registers or from shared memory; m64n32k8 with A from shared memory), the
 // shared-memory layout and descriptor of a K-major operand, and the mbarrier
 // / bulk-copy pieces that stage a tile.  Shared by the GLM kernels of this
 // directory; sm_90a only.
@@ -162,6 +162,53 @@ __device__ __forceinline__ void mma_n32k8_ss(float (&d)[16], uint64_t desc_a, ui
 #undef TF32X3_D32
 #undef TF32X3_D32_LIST
 
+// --- m64n128k8: the tiled route of glm_fused.cu --------------------------
+
+#define TF32X3_D64                                                                                                 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define TF32X3_D64_LIST \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+
+// d (64 x 128) += A (64 x 8, descriptor of a K-major tile) * B (8 x 128,
+// descriptor).  The accumulator as m64n64k8's, j = 0..15.
+__device__ __forceinline__ void mma_n128k8_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " TF32X3_D64_LIST
+        "%64, %65, p, 1, 1;\n"
+        "}\n"
+        : TF32X3_D64
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 8, registers) * B (8 x 128, descriptor).
+__device__ __forceinline__ void mma_n128k8_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " TF32X3_D64_LIST
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+        "}\n"
+        : TF32X3_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef TF32X3_D64
+#undef TF32X3_D64_LIST
+
 // Position, in its group of 8, at which a K-major B holds row r of a product
 // whose A is the accumulator of an earlier m64nNk8 product (its columns now
 // the K of the second): the accumulator register d[4j+0] (column 8j+2t) is
@@ -194,6 +241,11 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
         "l"(src), "r"(bytes), "r"(smem_u32(bar))
         : "memory");
+}
+
+// One arrival on bar (its count was given at mbar_init).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // Waits until the phase of bar with this parity has completed.

@@ -6,13 +6,13 @@ sources:
 
 - ``_glm_kernel`` (four families with one linear predictor per chain) and
   ``_ordered_kernel`` (the ordered-logistic GLM, ``logp``, ``gbeta``,
-  ``gcuts``), ``csrc/glm_fused.cu``, each by two routes: ``glm_tc_kernel``,
-  both products on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``), taken
-  transposed with the chains as the rows of the product, for ``D <= 63`` (and
-  ``K <= 8`` categories); ``glm_fused_kernel`` / ``glm_ordered_kernel``,
-  float32 FMAs with the features in slices of 64, for every wider shape (and
-  the ordered ``D`` 57-63 at ``K`` 6-8, whose block does not fit shared
-  memory).  ``glm_tile_plan`` picks the route and the tile by shape alone;
+  ``gcuts``), ``csrc/glm_fused.cu``: both products on the tensor cores in
+  3xTF32 (``csrc/tf32x3.cuh``), taken transposed with the chains as the rows
+  of the product, by two kernels: ``glm_tc_kernel`` for ``D <= 63`` (and
+  ``K <= 8`` categories) where its block fits shared memory, and the tiled
+  route (``pack_kernel``, ``value_kernel``, then ``grad_kernel``: D in slices
+  of 32 through a ring of bulk copies, theta' through device memory) for
+  every other shape.  ``glm_tile_plan`` picks by shape alone;
 - ``_categorical_kernel``, ``csrc/glm_categorical.cu``: the
   categorical-logit GLM, ``logp``, ``galpha``, ``gbeta``, its two products on
   the tensor cores in 3xTF32 at every shape, by two kernels:
@@ -43,10 +43,10 @@ else; the ``*_chains`` dispatchers first lay ``x`` and ``y`` out as the kernels
 take them (``kernel_layout``), so they refuse no layout and no integer type.
 There are no dispatch thresholds: those of the JAX package were measured on
 another chip and are not carried over.  ``LAUNCHES`` counts launches of the
-tensor-core kernels per family (and the categorical kernel's),
-``LAUNCHES_TILED`` calls of the tiled categorical pair (five launches a call:
-``TILED_LAUNCHES_PER_CALL``), ``LAUNCHES_FMA`` those of the float32 kernels
-(B1 and B2), ``PLAIN_CALLS`` calls of the
+tensor-core kernels per family (``glm_tc_kernel`` and the categorical kernel's),
+``LAUNCHES_TILED`` calls of the tiled routes (the four families and the
+ordered GLM: ``GLM_TILED_LAUNCHES_PER_CALL`` launches a call; the categorical
+pair: ``TILED_LAUNCHES_PER_CALL``), ``PLAIN_CALLS`` calls of the
 plain version, ``LAYOUT_COPIES`` the dispatcher calls that had to copy ``x``
 or ``y``, so a run can show which one it went through.
 
@@ -87,8 +87,7 @@ CATEGORICAL = "categorical_logit"
 KERNEL_FAMILIES = FAMILIES + (ORDERED, CATEGORICAL)
 
 LAUNCHES = {f: 0 for f in KERNEL_FAMILIES}
-LAUNCHES_FMA = {f: 0 for f in KERNEL_FAMILIES}
-LAUNCHES_TILED = {CATEGORICAL: 0}
+LAUNCHES_TILED = {f: 0 for f in KERNEL_FAMILIES}
 PLAIN_CALLS = {f: 0 for f in KERNEL_FAMILIES}
 LAYOUT_COPIES = {f: 0 for f in KERNEL_FAMILIES}
 
@@ -103,10 +102,9 @@ def _up128(b):
 def reset_counts():
     for f in KERNEL_FAMILIES:
         LAUNCHES[f] = 0
-        LAUNCHES_FMA[f] = 0
+        LAUNCHES_TILED[f] = 0
         PLAIN_CALLS[f] = 0
         LAYOUT_COPIES[f] = 0
-    LAUNCHES_TILED[CATEGORICAL] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -162,17 +160,15 @@ _cat_lib = None
 
 
 def _library():
-    """The kernels of ``csrc/glm_fused.cu`` (four families, ordered), built at
-    first use."""
+    """The kernels of ``csrc/glm_fused.cu`` (four families, ordered: both
+    routes), built at first use."""
     global _lib
     if _lib is None:
         lib = _build.load_library("glm_fused")
-        lib.glm_fused_launch.restype = ctypes.c_int
-        lib.glm_fused_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
-        lib.glm_ordered_launch.restype = ctypes.c_int
-        lib.glm_ordered_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.glm_tiled_launch.restype = ctypes.c_int
+        lib.glm_tiled_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.glm_tiled_smem_bytes.restype = ctypes.c_longlong
+        lib.glm_tiled_smem_bytes.argtypes = []
         lib.glm_tc_launch.restype = ctypes.c_int
         lib.glm_tc_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.glm_tc_smem_bytes.restype = ctypes.c_longlong
@@ -227,14 +223,6 @@ def _check_cuda_layout(who, y, floats):
             raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def row_blocks_for(n, c, sms, cols=64):
-    """Blocks along the rows of the float32 kernels: about two blocks per SM
-    over all column tiles (``cols`` chains a tile)."""
-    chain_tiles = -(-c // cols)
-    n_tiles = (n + 63) // 64
-    return max(1, min(n_tiles, (2 * sms + chain_tiles - 1) // chain_tiles))
-
-
 # The tensor-core kernels (glm_tc_kernel in csrc/glm_fused.cu): the widest x
 # ([x, 1] in one n64 product), the most categories of the ordered kernel
 # (compiled per K), and the chains of one block (two pairs of warpgroups, 64
@@ -264,23 +252,80 @@ def glm_tc_smem_bytes(d, kcat=0):
     return sum(_up128(p) for p in parts)
 
 
+# The tiled route (csrc/glm_fused.cu, namespace tiled): column tiles of 128
+# chains (64 a consumer warpgroup), launch 1's row tiles of 128 rows, D in
+# slices of 32, launch 2's chunks of 32 rows and groups of 128 features, a
+# ring of three 64 KB stages a block, two consumer warpgroups and a producer
+# warp; five launches a call (pack, value, gradient, two reductions).
+GLM_TILED_CHAINS = 128
+GLM_TILED_ROWS = 128
+GLM_TILED_DS = 32
+GLM_TILED_CHUNK = 32
+GLM_TILED_FEATURES = 128
+GLM_TILED_STAGES = 3
+GLM_TILED_STAGE_BYTES = 65_536
+GLM_TILED_LAUNCHES_PER_CALL = 5
+GLM_TILED_PARTIAL_FLOATS = 1 << 26  # launch 2's partials are capped at 256 MB
+
+
+def glm_tiled_smem_bytes():
+    """Bytes of shared memory one block of either launch of the tiled route
+    needs (its ``layout_of``): the ring of stages, then their full and empty
+    barriers.  The same for every D and K."""
+    return GLM_TILED_STAGES * GLM_TILED_STAGE_BYTES + _up128(2 * GLM_TILED_STAGES * 8)
+
+
+def glm_tiled_scratch(n, d, c, kcat=None):
+    """Sizes of the tiled route's scratch: ``(packed floats, theta' floats,
+    double sums per row block, gradient partial floats per row block)``.
+    ``packed``: beta^T and x split hi / lo in stages of 128 x 32 (8,192
+    floats each), then y over whole row tiles, then the ordered GLM's
+    extended cuts (K+1, C) and log1m_exp terms (K, C)."""
+    n_tiles = -(-n // GLM_TILED_ROWS)
+    ns = -(-d // GLM_TILED_DS)
+    col_tiles = -(-c // GLM_TILED_CHAINS)
+    stage = 2 * GLM_TILED_CHAINS * GLM_TILED_DS
+    packed = col_tiles * ns * stage + n_tiles * ns * stage + n_tiles * GLM_TILED_ROWS + ((2 * kcat + 1) * c if kcat else 0)
+    theta = n_tiles * (GLM_TILED_ROWS // GLM_TILED_CHUNK) * col_tiles * stage
+    return packed, theta, (kcat if kcat else 3) * c, d * c
+
+
+def glm_tiled_plan(n, d, c, sms):
+    """The tiled route's plan for ``x (n, d)`` and ``c`` chains on a card with
+    ``sms`` SMs, any shape (the same for every K): column tiles of 128 chains,
+    ``slices`` of 32 features, ``feature_groups`` of 128 for launch 2,
+    ``row_blocks_value`` (launch 1) and ``row_blocks`` (launch 2): one block
+    an SM over the card, launch 2's partials capped; ``smem`` of either
+    launch's block, ``launches`` a call."""
+    row_tiles = -(-n // GLM_TILED_ROWS)
+    col_tiles = -(-c // GLM_TILED_CHAINS)
+    groups = -(-d // GLM_TILED_FEATURES)
+    cap = max(1, GLM_TILED_PARTIAL_FLOATS // (d * c))
+    return {"route": "tensor_cores", "kernel": "tiled", "chains_per_block": GLM_TILED_CHAINS,
+            "column_tiles": col_tiles, "slices": -(-d // GLM_TILED_DS), "feature_groups": groups,
+            "smem": glm_tiled_smem_bytes(),
+            "row_blocks_value": max(1, min(row_tiles, sms // col_tiles, 65535)),
+            "row_blocks": max(1, min(4 * row_tiles, sms // (groups * col_tiles), cap, 65535)),
+            "launches": GLM_TILED_LAUNCHES_PER_CALL}
+
+
 def glm_tile_plan(n, d, c, sms, kcat=None):
     """Route and tile of kernel 1 (``kcat`` None) or of the ordered kernel
     (``kcat`` = K categories) for ``x (n, d)`` and ``c`` chains on a card with
-    ``sms`` SMs, decided by shape alone.  ``route`` is ``"tensor_cores"``
-    (``glm_tc_kernel``) where ``d <= TC_MAX_D``, ``kcat <= TC_MAX_CATEGORIES``
-    and the block fits shared memory, else ``"fma"`` (the float32 kernel).
-    For the tensor cores: ``TC_CHAINS`` chains a block, ``smem``,
-    ``column_tiles`` and ``row_blocks`` (one block an SM, as the register cap
-    of 512 threads allows; one wave over the card)."""
-    n_tiles = -(-n // 64)
+    ``sms`` SMs, decided by shape alone; ``route`` is always
+    ``"tensor_cores"``.  ``kernel`` ``"single"`` (``glm_tc_kernel``) where
+    ``d <= TC_MAX_D``, ``kcat <= TC_MAX_CATEGORIES`` and its block fits shared
+    memory: ``TC_CHAINS`` chains a block, ``smem``, ``column_tiles`` and
+    ``row_blocks`` (one block an SM, as the register cap of 512 threads
+    allows; one wave over the card).  Else ``"tiled"``, any shape:
+    ``glm_tiled_plan``."""
     if d <= TC_MAX_D and (kcat is None or kcat <= TC_MAX_CATEGORIES):
         smem = glm_tc_smem_bytes(d, kcat or 0)
         if smem <= MAX_SMEM_BYTES:
             tiles = -(-c // TC_CHAINS)
-            return {"route": "tensor_cores", "chains_per_block": TC_CHAINS, "column_tiles": tiles, "smem": smem,
-                    "row_blocks": max(1, min(n_tiles, sms // tiles))}
-    return {"route": "fma", "chains_per_block": 64, "column_tiles": -(-c // 64), "row_blocks": row_blocks_for(n, c, sms)}
+            return {"route": "tensor_cores", "kernel": "single", "chains_per_block": TC_CHAINS, "column_tiles": tiles,
+                    "smem": smem, "row_blocks": max(1, min(-(-n // 64), sms // tiles))}
+    return glm_tiled_plan(n, d, c, sms)
 
 
 def _check_aligned(who, tensors):
@@ -313,14 +358,42 @@ def _launch_tc(who, kind, kcat, plan, y, x, alpha, beta, extra, rows):
     return out
 
 
+def _launch_tiled(who, kind, kcat, plan, y, x, alpha, beta, extra, rows):
+    """One call of the tiled route by ``plan`` (five launches); returns ``out (rows, c)``."""
+    lib = _library()
+    n, d = x.shape
+    c = beta.shape[1]
+    if lib.glm_tiled_smem_bytes() != plan["smem"]:
+        raise RuntimeError(f"{who}: the tiled plan disagrees with the kernels' layout")
+    packed_n, theta_n, sums_n, part_n = glm_tiled_scratch(n, d, c, kcat or None)
+    rb1, rb2 = plan["row_blocks_value"], plan["row_blocks"]
+    # one scratch allocation a call, in floats: the double sums, packed, theta', partials, each 256-byte aligned
+    sizes = (2 * rb1 * sums_n, packed_n, theta_n, rb2 * part_n)
+    offsets = [0]
+    for size in sizes[:-1]:
+        offsets.append(offsets[-1] + -(-size // 64) * 64)
+    with torch.cuda.device(x.device):
+        scratch = torch.empty((offsets[-1] + sizes[-1],), dtype=torch.float32, device=x.device)
+        sums, packed, theta, partials = (scratch.data_ptr() + 4 * o for o in offsets)
+        out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
+        err = lib.glm_tiled_launch(
+            kind, kcat, y.data_ptr(), x.data_ptr(), None if alpha is None else alpha.data_ptr(), beta.data_ptr(),
+            None if extra is None else extra.data_ptr(), packed, theta, sums, partials, out.data_ptr(), n, d, c, rb1,
+            rb2, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{who}: tiled route launch failed: CUDA error {err}")
+    return out
+
+
 def glm_fused_parts(family, y, x, alpha, beta, extra=None):
     """``(logp (C,), ga (C,), gb (K, C), ge (C,) or None)`` for ``y (N,)``,
     ``x (N, K)``, ``alpha (C,)``, ``beta (K, C)``, ``extra (C,)``.
 
-    CUDA tensors go to the hand-written kernel (float32, contiguous, and x and
-    y 16-byte aligned on the tensor-core route, else this raises; the
-    dispatchers lay them out first); CPU tensors go to
-    ``glm_fused_parts_reference``.
+    CUDA tensors go to a hand-written tensor-core kernel by ``glm_tile_plan``
+    (float32, contiguous, and x and y 16-byte aligned for ``glm_tc_kernel``'s
+    bulk copies, else this raises; the dispatchers lay them out first); CPU
+    tensors go to ``glm_fused_parts_reference``.
     """
     if family not in _FAMILY_CODE:
         raise ValueError(f"unknown GLM family {family!r}")
@@ -351,25 +424,14 @@ def glm_fused_parts(family, y, x, alpha, beta, extra=None):
         raise ValueError(f"glm_fused_parts: need N, K, C >= 1; got {n}, {k}, {c}")
 
     plan = glm_tile_plan(n, k, c, _sm_count(x.device))
-    if plan["route"] == "tensor_cores":
+    extra_arg = extra if has_extra else None
+    if plan["kernel"] == "single":
         _check_aligned("glm_fused_parts", [("x", x), ("y", y)])
-        out = _launch_tc("glm_fused_parts", _FAMILY_CODE[family], 0, plan, y, x, alpha, beta,
-                         extra if has_extra else None, k + 3)
+        out = _launch_tc("glm_fused_parts", _FAMILY_CODE[family], 0, plan, y, x, alpha, beta, extra_arg, k + 3)
         LAUNCHES[family] += 1
-        return out[0], out[1], out[3:], (out[2] if has_extra else None)
-    lib = _library()
-    rb = plan["row_blocks"]
-    with torch.cuda.device(x.device):
-        partials = torch.empty((rb, k + 3, c), dtype=torch.float32, device=x.device)
-        out = torch.empty((k + 3, c), dtype=torch.float32, device=x.device)
-        err = lib.glm_fused_launch(
-            _FAMILY_CODE[family], y.data_ptr(), x.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-            extra.data_ptr() if has_extra else None, partials.data_ptr(), out.data_ptr(),
-            n, k, c, rb, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"glm_fused kernel launch failed for {family}: CUDA error {err}")
-    LAUNCHES_FMA[family] += 1
+    else:
+        out = _launch_tiled("glm_fused_parts", _FAMILY_CODE[family], 0, plan, y, x, alpha, beta, extra_arg, k + 3)
+        LAUNCHES_TILED[family] += 1
     return out[0], out[1], out[3:], (out[2] if has_extra else None)
 
 
@@ -668,9 +730,10 @@ def ordered_logistic_glm_parts(y, x, beta, cuts):
     categories 1..K, ``x (N, D)``, ``beta (D, C)``, ``cuts (K-1, C)``;
     ``propto=True`` form, valid data assumed (as the JAX dispatcher does).
 
-    CUDA tensors go to the hand-written kernel (``y`` int32, the rest float32,
-    all contiguous, and x and y 16-byte aligned on the tensor-core route, else
-    this raises; the dispatcher lays them out first); CPU tensors go to
+    CUDA tensors go to a hand-written tensor-core kernel by ``glm_tile_plan``
+    (``y`` int32, the rest float32, all contiguous, and x and y 16-byte
+    aligned for ``glm_tc_kernel``'s bulk copies, else this raises; the
+    dispatcher lays them out first); CPU tensors go to
     ``ordered_logistic_glm_parts_reference``.
     """
     who = "ordered_logistic_glm_parts"
@@ -696,23 +759,13 @@ def ordered_logistic_glm_parts(y, x, beta, cuts):
 
     plan = glm_tile_plan(n, d, c, _sm_count(x.device), kcat=kc + 1)
     rows = d + kc + 1
-    if plan["route"] == "tensor_cores":
+    if plan["kernel"] == "single":
         _check_aligned(who, [("x", x), ("y", y)])
         out = _launch_tc(who, ORDERED_KIND, kc + 1, plan, y, x, None, beta, cuts, rows)
         LAUNCHES[ORDERED] += 1
-        return out[0], out[1 : 1 + d], out[1 + d :]
-    lib = _library()
-    rb = plan["row_blocks"]
-    with torch.cuda.device(x.device):
-        partials = torch.empty((rb, rows, c), dtype=torch.float32, device=x.device)
-        out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
-        err = lib.glm_ordered_launch(
-            y.data_ptr(), x.data_ptr(), beta.data_ptr(), cuts.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            n, d, c, kc + 1, rb, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"glm_ordered kernel launch failed: CUDA error {err}")
-    LAUNCHES_FMA[ORDERED] += 1
+    else:
+        out = _launch_tiled(who, ORDERED_KIND, kc + 1, plan, y, x, None, beta, cuts, rows)
+        LAUNCHES_TILED[ORDERED] += 1
     return out[0], out[1 : 1 + d], out[1 + d :]
 
 

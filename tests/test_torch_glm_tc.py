@@ -24,6 +24,8 @@ here is the arithmetic it is built on, in its order:
   ``k8_position`` of ``tf32x3.cuh``, read from the sources, are exactly the map
   from the accumulator of an m64nNk8 product to the A fragment of the next, as
   an index map and on integers; wrong maps fail;
+- the tiled route's arithmetic (``tests/test_torch_glm_wide.py``) against
+  the Pallas kernels in interpret mode at a wide shape (N=300, D=96, C=16);
 - ``glm_tile_plan``: the main shape, and which kernel the wrapper's plan sends
   each shape to.
 """
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 
 from math_tpu.ops import pallas_glm as pg
 from math_tpu_torch.ops import glm_fused as gf
+from test_torch_glm_wide import tiled_family, tiled_ordered
 from test_torch_kernel_designs import split, tc_product
 from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
@@ -310,6 +313,32 @@ def test_ordered_emulation_against_pallas_interpret():
         _close(g.float(), w, rtol=3e-5 if i == 0 else 3e-4, atol=1e-3)
 
 
+N_W, D_W, C_W = 300, 96, 16  # a wide shape of the tiled route
+
+
+def test_tiled_family_emulation_against_pallas_interpret():
+    """The tiled route's arithmetic (``test_torch_glm_wide.tiled_family``) at
+    D = 96 against the Pallas kernel in interpret mode, at the tolerances of
+    the narrow shapes above."""
+    y, x, alpha, beta, extra = family_inputs("poisson_log", N_W, D_W, C_W, seed=35)
+    assert gf.glm_tile_plan(N_W, D_W, C_W, SMS)["kernel"] == "tiled"
+    want = pg._fused_forward("poisson_log", jnp.asarray(y), jnp.asarray(x), jnp.asarray(alpha), jnp.asarray(beta), None,
+                             interpret=True)
+    got = tiled_family("poisson_log", *t32((y, x, alpha, beta, extra)))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is not None:
+            _close(g.float(), w, rtol=3e-5 if i == 0 else 3e-4, atol=1e-3)
+
+
+def test_tiled_ordered_emulation_against_pallas_interpret():
+    y, x, beta, cuts = ordered_inputs(N_W, D_W, C_W, 10, seed=36)
+    assert gf.glm_tile_plan(N_W, D_W, C_W, SMS, kcat=10)["kernel"] == "tiled"
+    want = pg._ordered_forward(jnp.asarray(y), jnp.asarray(x), jnp.asarray(beta), jnp.asarray(cuts), interpret=True)
+    got = tiled_ordered(*t32((y, x, beta, cuts)))
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g.float(), w, rtol=3e-5 if i == 0 else 3e-4, atol=1e-3)
+
+
 # --- the accumulator-to-fragment permutation ---------------------------------
 
 
@@ -420,37 +449,50 @@ def test_split_and_product_are_the_designs():
 def test_tile_plan_at_the_main_shape():
     smem = gf.glm_tc_smem_bytes(50, 0)
     assert gf.glm_tile_plan(100_000, 50, 256, SMS) == {
-        "route": "tensor_cores", "chains_per_block": 128, "column_tiles": 2, "smem": smem, "row_blocks": 66}
+        "route": "tensor_cores", "kernel": "single", "chains_per_block": 128, "column_tiles": 2, "smem": smem,
+        "row_blocks": 66}
     plan = gf.glm_tile_plan(100_000, 50, 256, SMS, kcat=5)
-    assert plan["route"] == "tensor_cores" and plan["smem"] == gf.glm_tc_smem_bytes(50, 5)
+    assert plan["route"] == "tensor_cores" and plan["kernel"] == "single" and plan["smem"] == gf.glm_tc_smem_bytes(50, 5)
     assert plan["smem"] <= gf.MAX_SMEM_BYTES
-    # the widest ordered shapes whose block fits: D = 63 up to K = 5, D = 56 at K = 6-8
-    assert gf.glm_tile_plan(100_000, 63, 256, SMS, kcat=5)["route"] == "tensor_cores"
-    assert gf.glm_tile_plan(100_000, 56, 256, SMS, kcat=8)["route"] == "tensor_cores"
-    assert gf.glm_tile_plan(100_000, 57, 256, SMS, kcat=6)["route"] == "fma"
-    assert gf.glm_tile_plan(100_000, 63, 256, SMS, kcat=8)["route"] == "fma"
+    # the widest ordered shapes whose block fits: D = 63 up to K = 5, D = 56 at K = 6-8; past them, the tiled route
+    assert gf.glm_tile_plan(100_000, 63, 256, SMS, kcat=5)["kernel"] == "single"
+    assert gf.glm_tile_plan(100_000, 56, 256, SMS, kcat=8)["kernel"] == "single"
+    assert gf.glm_tile_plan(100_000, 57, 256, SMS, kcat=6)["kernel"] == "tiled"
+    assert gf.glm_tile_plan(100_000, 63, 256, SMS, kcat=8)["kernel"] == "tiled"
+    assert gf.glm_tile_plan(100_000, 57, 256, SMS, kcat=6)["route"] == "tensor_cores"
 
 
 @pytest.mark.parametrize("kcat", [None, 2, 3, 5, 8, 9, 12])
 @pytest.mark.parametrize("d", [1, 7, 50, 55, 56, 63, 64, 96, 235])
 def test_tile_plan_routes_by_shape(d, kcat):
-    """D <= 63 and K <= 8 go to the tensor cores where the block fits shared
+    """D <= 63 and K <= 8 go to glm_tc_kernel where its block fits shared
     memory, in a grid that covers every chain in one wave, one block an SM;
-    the other shapes go to the float32 kernel."""
+    the other shapes go to the tiled route: column tiles of 128 chains, D in
+    slices of 32 and groups of 128, one block an SM over the card.  Every
+    shape is on the tensor cores."""
     for n, c in ((100_000, 256), (1537, 5), (300, 64), (5000, 300)):
         plan = gf.glm_tile_plan(n, d, c, SMS, kcat=kcat)
+        assert plan["route"] == "tensor_cores", (n, d, c, kcat)
+        assert plan["column_tiles"] * plan["chains_per_block"] >= c > (plan["column_tiles"] - 1) * plan["chains_per_block"]
+        assert plan["smem"] + 1024 <= gf.SM_SMEM_BYTES
         fits = gf.glm_tc_smem_bytes(d, kcat or 0) <= gf.MAX_SMEM_BYTES
         if d <= gf.TC_MAX_D and (kcat is None or kcat <= gf.TC_MAX_CATEGORIES) and fits:
-            assert plan["route"] == "tensor_cores", (n, d, c, kcat)
+            assert plan["kernel"] == "single", (n, d, c, kcat)
             assert plan["chains_per_block"] == gf.TC_CHAINS
             assert plan["smem"] == gf.glm_tc_smem_bytes(d, kcat or 0) <= gf.MAX_SMEM_BYTES
-            assert plan["smem"] + 1024 <= gf.SM_SMEM_BYTES
-            assert plan["column_tiles"] * plan["chains_per_block"] >= c > (plan["column_tiles"] - 1) * plan["chains_per_block"]
             assert 1 <= plan["row_blocks"] <= -(-n // 64)
             assert plan["row_blocks"] * plan["column_tiles"] <= SMS or plan["row_blocks"] == 1
         else:
-            assert plan["route"] == "fma", (n, d, c, kcat)
-            assert plan["row_blocks"] == gf.row_blocks_for(n, c, SMS)
+            assert plan["kernel"] == "tiled", (n, d, c, kcat)
+            assert plan["chains_per_block"] == gf.GLM_TILED_CHAINS
+            assert plan["smem"] == gf.glm_tiled_smem_bytes() <= gf.MAX_SMEM_BYTES
+            assert plan["slices"] == -(-d // gf.GLM_TILED_DS) and plan["feature_groups"] == -(-d // gf.GLM_TILED_FEATURES)
+            row_tiles = -(-n // gf.GLM_TILED_ROWS)
+            assert 1 <= plan["row_blocks_value"] <= row_tiles
+            assert plan["row_blocks_value"] * plan["column_tiles"] <= SMS or plan["row_blocks_value"] == 1
+            assert 1 <= plan["row_blocks"] <= 4 * row_tiles
+            assert plan["row_blocks"] * plan["feature_groups"] * plan["column_tiles"] <= SMS or plan["row_blocks"] == 1
+            assert plan["launches"] == gf.GLM_TILED_LAUNCHES_PER_CALL
 
 
 def test_tile_plan_constants_are_the_kernels():
@@ -461,7 +503,11 @@ def test_tile_plan_constants_are_the_kernels():
     assert f"constexpr int ORDERED_KIND = {gf.ORDERED_KIND};" in cu
     assert f"constexpr int TC_CHAINS = 64 * TC_PAIRS;" in cu and "constexpr int TC_PAIRS = 2;" in cu
     assert gf.TC_CHAINS == 128
-    assert f"constexpr size_t TC_MAX_SMEM = {gf.MAX_SMEM_BYTES};" in cu
+    # the limit is glm_common.cuh's, shared with glm_categorical.cu; no source defines its own
+    assert f"constexpr size_t MAX_SMEM = {gf.MAX_SMEM_BYTES};" in _source("glm_common.cuh")
+    for name in ("glm_fused.cu", "glm_categorical.cu"):
+        assert "using glm_common::MAX_SMEM;" in _source(name)
+        assert not re.search(r"constexpr size_t \w*MAX_SMEM\b", _source(name)), name
     body = re.search(r"#define GLM_TC_INSTANCES\(X\)(.*?)\n\n", cu, re.S).group(1)
     pairs = {(int(a), int(b)) for a, b in re.findall(r"X\((\d), (\d)\)", body)}
     assert pairs == {(f, 0) for f in range(4)} | {(gf.ORDERED_KIND, k) for k in range(2, gf.TC_MAX_CATEGORIES + 1)}

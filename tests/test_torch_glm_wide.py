@@ -1,18 +1,23 @@
 """PyTorch port: the GLM inputs the dispatchers once refused, on the CPU (the kernels run only on the card).
 
-- The float32 kernels' arithmetic (B1, B2) emulated in their order: eta
-  summed over slices of 64 features, the gradient sums of each 64-row tile
-  added into the block's partial in float32 and the partials in float64.
+- B1's and B2's tiled tensor-core route (``csrc/glm_fused.cu``, namespace
+  ``tiled``) emulated in its order: 3xTF32 products (``tf32_emulation.py``),
+  eta over slices of 32 features, each slice's product from zero, added in
+  float32; the core; its per-chain sums over each 128-row tile in float32,
+  the tiles of a block and the blocks in float64; theta' through product 2
+  by chunks of 32 rows, each from zero, a block's chunks in float32 and the
+  blocks in float64.  Also held against the Pallas kernels of the JAX
+  package in interpret mode (``tests/test_torch_glm_tc.py``).
 - The tiled categorical pair's arithmetic (``csrc/glm_categorical.cu``)
-  emulated in its order: 3xTF32 products (``tf32_emulation.py``), eta over
-  slices of 32 features added in float32, launch 1's online log-sum-exp over
-  the 80-column tiles, theta' from ``lse``, product 2 by 64-row tiles, the
-  blocks' partials in float64.
+  emulated in its order: 3xTF32 products, eta over slices of 32 features
+  added in float32, launch 1's online log-sum-exp over the 80-column tiles,
+  theta' from ``lse``, product 2 by 64-row tiles, the blocks' partials in
+  float64.
 - Both held against the float64 plain version at the wide shapes of
   ``chip_smoke.py``'s ``wide`` phase (N cut to 1,000) with its tolerances:
   logp rtol 2e-5; gradients rtol 3e-4, atol 1e-3.
 - The route functions give a route, never None, for every such input; the
-  tiled pair's plan and its shared-memory layout against the C source.
+  tiled routes' plans and shared-memory layouts against the C sources.
 - The dispatchers' layout helper: what it copies, what it casts, what it
   counts, and that it leaves CPU tensors alone.
 """
@@ -24,45 +29,73 @@ import numpy as np
 import pytest
 
 import torch
+import torch.nn.functional as F
 
 from math_tpu_torch.ops import glm_fused as gf
-from tf32_emulation import tc_blocked_product, tc_product
+from tf32_emulation import tc_blocked_product, tc_chunked_product, tc_product, tc_product_small_first
 from torch_threads import one_torch_thread  # noqa: F401,E402  (one torch thread a module)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMS = 132
-N, C, TM, DS = 1000, 20, 64, 64
-RB = 3  # blocks along the rows
+N, C, TM = 1000, 20, 64
 FAMILY_D = (282, 1024)
-ORDERED = ((236, 5), (1024, 12))
+ORDERED = ((236, 5), (1024, 12), (63, 8), (20, 10), (40, 20))  # K = 20: gcuts in two passes of sixteen cuts
 CATEGORICAL = ((50, 65), (50, 200), (400, 5), (212, 41))
 
 
-def _sliced_eta(x, bmat):
-    """x (N, D) @ bmat (D, M) in float32, the slices of 64 features added in order."""
-    eta = torch.zeros((x.shape[0], bmat.shape[1]), dtype=torch.float32)
-    for d0 in range(0, x.shape[1], DS):
-        eta = eta + x[:, d0 : d0 + DS] @ bmat[d0 : d0 + DS]
-    return eta
+def tiled_eta(x, beta):
+    """Launch 1's eta (N, C) = x @ beta: D in slices of 32 (zeros past D),
+    each slice's product eta^T = beta^T x^T from zero, the slices added in
+    float32."""
+    ds = gf.GLM_TILED_DS
+    pad = (-x.shape[1]) % ds
+    xp, bp = F.pad(x, (0, pad)), F.pad(beta, (0, 0, 0, pad))
+    eta = torch.zeros((beta.shape[1], x.shape[0]), dtype=torch.float32)
+    for d0 in range(0, xp.shape[1], ds):
+        eta = eta + tc_product_small_first(bp[d0 : d0 + ds].mT, xp[:, d0 : d0 + ds].mT)
+    return eta.mT
 
 
-def _tile_sums(rows):
-    """Per-row values (N, ...) summed as the kernels do: each block's tiles
-    (tile t goes to block t % RB) in float32 in tile order, the blocks' partials
+def tile_sums(rows, row_blocks):
+    """Per-row values (N, ...) summed as launch 1 does: over each 128-row
+    tile in float32, tile t into block t % row_blocks in float64, the blocks
     in float64."""
-    tiles = [rows[r : r + TM].sum(0) for r in range(0, rows.shape[0], TM)]
-    partials = []
-    for b in range(RB):
-        acc = None
-        for t in tiles[b::RB]:
-            acc = t if acc is None else acc + t
-        partials.append(acc.double())
-    return sum(partials)
+    rt = gf.GLM_TILED_ROWS
+    tiles = [rows[r : r + rt].sum(0).double() for r in range(0, rows.shape[0], rt)]
+    return sum(sum(tiles[b::row_blocks]) for b in range(row_blocks))
 
 
-def _xt_theta(x, th):
-    """[x^T theta'] (D, M) by tiles: each tile's product in float32, then _tile_sums."""
-    return _tile_sums(torch.einsum("nd,nm->ndm", x, th))
+def tiled_family(family, y, x, alpha, beta, extra):
+    """(logp, ga, gb, ge) of the tiled route in its arithmetic."""
+    n, d = x.shape
+    plan = gf.glm_tile_plan(n, d, beta.shape[1], SMS)
+    eta = tiled_eta(x, beta) + alpha
+    lp, tp, de = gf._core(family, eta, y[:, None], None if extra is None else extra[None, :])
+    rb1 = plan["row_blocks_value"]
+    gb = tc_chunked_product(x.mT, tp, plan["row_blocks"], gf.GLM_TILED_CHUNK)
+    return tile_sums(lp, rb1), tile_sums(tp, rb1), gb, (tile_sums(de, rb1) if extra is not None else None)
+
+
+def tiled_ordered(y, x, beta, cuts):
+    """(logp, gbeta, gcuts) of the tiled route in its arithmetic: the cut
+    pair by index (-/+1e4 at the ends), log1m_exp(c_{y-1} - c_y) per
+    element, gcuts as per-row sums of w2 at y = j and -w1 at y = j + 1."""
+    n, d = x.shape
+    k = cuts.shape[0] + 1
+    plan = gf.glm_tile_plan(n, d, beta.shape[1], SMS, kcat=k)
+    eta = tiled_eta(x, beta)
+    big = torch.full((1, cuts.shape[1]), gf.ORD_BIG)
+    ext = torch.cat([-big, cuts, big])
+    yl = torch.clamp(y.long(), 1, k)
+    u2, u1 = ext[yl] - eta, ext[yl - 1] - eta
+    sp2, sp1 = gf._softplus(u2), gf._softplus(u1)
+    lp = u2 - sp2 - sp1 + gf.log1m_exp(torch.clamp(ext[yl - 1] - ext[yl], -80.0, -1e-20))
+    w2, w1 = torch.exp(u2 - 2.0 * sp2 - lp), torch.exp(u1 - 2.0 * sp1 - lp)
+    onehot = F.one_hot(yl, k + 1).float()  # (N, K+1)
+    rb1 = plan["row_blocks_value"]
+    gc = tile_sums(onehot[:, 1:k, None] * w2[:, None, :] - onehot[:, 2 : k + 1, None] * w1[:, None, :], rb1)
+    gbeta = tc_chunked_product(x.mT, w1 - w2, plan["row_blocks"], gf.GLM_TILED_CHUNK)
+    return tile_sums(lp, rb1), gbeta, gc
 
 
 def _check(got, want, names):
@@ -79,6 +112,8 @@ def _x(d, seed):
 @pytest.mark.parametrize("family", gf.FAMILIES)
 @pytest.mark.parametrize("d", FAMILY_D)
 def test_sliced_family_kernel_holds_the_tolerance(family, d):
+    """The tiled route's four families: D in slices of 32, theta' through
+    product 2 by chunks of 32 rows."""
     rng = np.random.default_rng(d)
     x = _x(d, d + 1)
     scale = 1.0 / np.sqrt(d)
@@ -88,9 +123,8 @@ def test_sliced_family_kernel_holds_the_tolerance(family, d):
          "normal_id": rng.normal(size=N), "neg_binomial_2_log": rng.poisson(3.0, N)}[family]
     y = torch.tensor(y, dtype=torch.float32)
     extra = torch.tensor(0.5 + rng.uniform(size=C) * 3.0, dtype=torch.float32) if gf.HAS_EXTRA[family] else None
-    eta = _sliced_eta(x, beta) + alpha
-    lp, tp, de = gf._core(family, eta, y[:, None], None if extra is None else extra[None, :])
-    got = [_tile_sums(lp), _tile_sums(tp), _xt_theta(x, tp)] + ([_tile_sums(de)] if extra is not None else [])
+    assert gf.glm_tile_plan(N, d, C, SMS)["kernel"] == "tiled"
+    got = [g for g in tiled_family(family, y, x, alpha, beta, extra) if g is not None]
     want = gf.glm_fused_parts_reference(family, y.double(), x.double(), alpha.double(), beta.double(),
                                         None if extra is None else extra.double())
     _check(got, [w for w in want if w is not None], ["logp", "ga", "gb", "ge"])
@@ -98,36 +132,29 @@ def test_sliced_family_kernel_holds_the_tolerance(family, d):
 
 @pytest.mark.parametrize("d, k", ORDERED)
 def test_sliced_ordered_kernel_holds_the_tolerance(d, k):
-    """The ordered kernel's core on the sliced eta, the cut pair read by index
-    (-/+1e4 at the ends), gcuts summed by tiles."""
+    """The tiled route's ordered GLM, at the wide shapes, at the widest D
+    whose glm_tc_kernel block does not fit (63, 8), past its K (20, 10), and
+    at K = 20 (gcuts in two passes of sixteen cuts)."""
     rng = np.random.default_rng(d + k)
     x = _x(d, d + k + 1)
     beta = torch.tensor(rng.normal(size=(d, C)) / np.sqrt(d), dtype=torch.float32)
     cuts = torch.tensor(np.cumsum(0.3 + rng.uniform(size=(k - 1, C)), axis=0) - 0.5 * k, dtype=torch.float32)
     y = torch.tensor(rng.integers(1, k + 1, N), dtype=torch.int32)
-    eta = _sliced_eta(x, beta)
-    ext = torch.cat([torch.full((1, C), -gf.ORD_BIG), cuts, torch.full((1, C), gf.ORD_BIG)])
-    yl = y.long()
-    u2, u1 = ext[yl] - eta, ext[yl - 1] - eta
-    sp2, sp1 = gf._softplus(u2), gf._softplus(u1)
-    lp = u2 - sp2 - sp1 + gf.log1m_exp(torch.clamp(u1 - u2, -80.0, -1e-20))
-    w2, w1 = torch.exp(u2 - 2.0 * sp2 - lp), torch.exp(u1 - 2.0 * sp1 - lp)
-    onehot = torch.nn.functional.one_hot(yl, k + 1).float()  # (N, K+1)
-    gc = _tile_sums(onehot[:, 1:k, None] * w2[:, None, :] - onehot[:, 2 : k + 1, None] * w1[:, None, :])
-    got = [_tile_sums(lp), _xt_theta(x, w1 - w2), gc]
+    assert gf.glm_tile_plan(N, d, C, SMS, kcat=k)["kernel"] == "tiled"
+    got = tiled_ordered(y, x, beta, cuts)
     want = gf.ordered_logistic_glm_parts_reference(y, x.double(), beta.double(), cuts.double())
     _check(got, want, ["logp", "gbeta", "gcuts"])
 
 
 def _tiled_eta(x, bmat):
-    """Product 1 of the tiled pair: x (N, D) @ bmat (D, M), D in slices of 32,
-    each slice's 3xTF32 product (zero-padded to whole k8 steps) from zero,
-    the slices added in float32."""
+    """Product 1 of the tiled categorical pair: x (N, D) @ bmat (D, M), D in
+    slices of 32, each slice's 3xTF32 product (zero-padded to whole k8 steps)
+    from zero, the slices added in float32."""
     eta = None
     for d0 in range(0, x.shape[1], gf.TILED_DS):
         xs, bs = x[:, d0 : d0 + gf.TILED_DS], bmat[d0 : d0 + gf.TILED_DS]
         pad = (-xs.shape[1]) % 8
-        p = tc_product(torch.nn.functional.pad(xs, (0, pad)), torch.nn.functional.pad(bs, (0, 0, 0, pad)))
+        p = tc_product(F.pad(xs, (0, pad)), F.pad(bs, (0, 0, 0, pad)))
         eta = p if eta is None else eta + p
     return eta
 
@@ -172,7 +199,7 @@ def _tiled_categorical(y, x, alpha, beta, plan):
     # rows of a tile in order in float32, the tiles of a block and the blocks in double
     tiles = [lp[r : r + TM].sum(0).double() for r in range(0, n, TM)]
     logp = sum(sum(tiles[b :: plan["row_blocks_lse"]]) for b in range(plan["row_blocks_lse"]))
-    onehot = torch.nn.functional.one_hot(yk, k).float()[:, None, :]
+    onehot = F.one_hot(yk, k).float()[:, None, :]
     thetap = (onehot - torch.exp(e - lse[..., None])).reshape(n, c * k)
     g = tc_blocked_product(torch.cat([x, torch.ones(n, 1)], 1).mT, thetap, plan["row_blocks"]).view(d + 1, c, k)
     return logp, g[d], g[:d].permute(1, 0, 2)
@@ -213,12 +240,25 @@ def _tiled_plan_holds(plan, n, d, c, k):
     assert plan["row_blocks"] * c * k * (d + 1) <= max(gf.TILED_PARTIAL_FLOATS, c * k * (d + 1))
 
 
+def _glm_tiled_plan_holds(plan, n, d, c):
+    """B1 / B2's tiled plan covers the shape, one block an SM, within shared memory."""
+    assert plan["route"] == "tensor_cores" and plan["kernel"] == "tiled", (n, d, c)
+    assert plan["column_tiles"] * gf.GLM_TILED_CHAINS >= c > (plan["column_tiles"] - 1) * gf.GLM_TILED_CHAINS
+    assert plan["slices"] == -(-d // gf.GLM_TILED_DS) and plan["feature_groups"] == -(-d // gf.GLM_TILED_FEATURES)
+    assert plan["smem"] == gf.glm_tiled_smem_bytes() <= gf.MAX_SMEM_BYTES
+    row_tiles = -(-n // gf.GLM_TILED_ROWS)
+    assert 1 <= plan["row_blocks_value"] <= min(row_tiles, 65535)
+    assert 1 <= plan["row_blocks"] <= min(4 * row_tiles, 65535)
+    assert plan["row_blocks"] * d * c <= max(gf.GLM_TILED_PARTIAL_FLOATS, d * c)
+    assert plan["launches"] == gf.GLM_TILED_LAUNCHES_PER_CALL == 5
+
+
 @pytest.mark.parametrize("n, c", [(4099, 20), (100_000, 256)])
 def test_every_c1_input_has_a_route(n, c):
     for d in FAMILY_D:
-        assert gf.glm_tile_plan(n, d, c, SMS)["route"] == "fma"
+        _glm_tiled_plan_holds(gf.glm_tile_plan(n, d, c, SMS), n, d, c)
     for d, k in ORDERED:
-        assert gf.glm_tile_plan(n, d, c, SMS, kcat=k)["route"] == "fma"
+        _glm_tiled_plan_holds(gf.glm_tile_plan(n, d, c, SMS, kcat=k), n, d, c)
     for d, k in CATEGORICAL + ((7, 65), (320, 5), (700, 3), (330, 30), (400, 12)):
         _tiled_plan_holds(gf.categorical_route(n, d, c, k, SMS), n, d, c, k)
     # a shape of the first tensor-core kernel keeps it: a route by shape, not a threshold
@@ -227,7 +267,36 @@ def test_every_c1_input_has_a_route(n, c):
     assert gf.categorical_route(n, 211, c, 40, SMS)["kernel"] == "single"
     assert gf.categorical_route(n, 319, c, 5, SMS)["kernel"] == "single"
     assert gf.categorical_route(n, 64, c, 64, SMS)["kernel"] == "single"
-    assert gf.glm_tile_plan(n, 33, c, SMS)["route"] == "tensor_cores"
+    assert gf.glm_tile_plan(n, 33, c, SMS)["kernel"] == "single"
+    assert gf.glm_tile_plan(n, 63, c, SMS, kcat=5)["kernel"] == "single"
+
+
+def test_chip_checks_reach_every_branch_of_the_tiled_route():
+    """``chip_smoke.py``'s ``kernels_wide`` shapes, planned for the H100's 132
+    SMs, take B1 / B2's tiled route and between them reach every branch that
+    ``tiled_route_reach`` names: a block of launch 1 over several row tiles
+    and one of launch 2 over several row chunks, a second column tile and
+    feature group, each launch's second warpgroup with and without work, and
+    ring stages that do not divide a row tile's slices.  The timed shapes
+    (N = 100,000, C = 256), which ``time_wide`` holds against float64 too,
+    take a dozen row tiles a block of launch 1."""
+    import sys
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    shapes = [(n, d, c, None) for n, d, c in chip_smoke.WIDE_FAMILY] + list(chip_smoke.WIDE_ORDERED)
+    reach = []
+    for n, d, c, k in shapes:
+        assert gf.glm_tile_plan(n, d, c, SMS, kcat=k)["kernel"] == "tiled", (n, d, c, k)
+        reach.append(chip_smoke.tiled_route_reach(n, d, c, SMS))
+    for key in ("one_warpgroup_launch_1", "one_warpgroup_launch_2", "ring_turns_within_tiles"):
+        assert {r[key] for r in reach} == {True, False}, key
+    for key in ("tiles_a_block", "chunks_a_block", "column_tiles", "feature_groups"):
+        assert max(r[key] for r in reach) > 1, key
+    for d in chip_smoke.C1_FAMILY_D + tuple(d for d, _ in chip_smoke.C1_ORDERED):
+        timed = chip_smoke.tiled_route_reach(chip_smoke.N_MAIN, d, chip_smoke.C_MAIN, SMS)
+        assert timed["tiles_a_block"] >= 12 and timed["column_tiles"] == 2 and timed["chunks_a_block"] > 1, d
 
 
 def test_tiled_plan_packs_the_classes_and_groups_d():
@@ -258,16 +327,6 @@ def test_tiled_plan_packs_the_classes_and_groups_d():
         _tiled_plan_holds(gf.categorical_tiled_plan(n, d, c, k, SMS), n, d, c, k)
 
 
-def test_float32_kernels_shared_memory_does_not_grow():
-    """The C source: the slices are 64 wide, and the float32 kernels' shared
-    memory is a constant."""
-    with open(os.path.join(ROOT, "math_tpu_torch/csrc/glm_fused.cu"), encoding="utf-8") as f:
-        cu = f.read()
-    assert f"constexpr int DS = {DS};" in cu
-    assert "constexpr size_t FUSED_SMEM = sizeof(float) * (TM * TC + DS * TC + TM * DS + TM);" in cu
-    assert "glm_categorical_wide" not in cu and "CatTile" not in cu  # the categorical shapes are all on the tensor cores
-
-
 def _c_layout(cu, function, **values):
     """Evaluate a layout function of the C source: the sum of its ``at +=``
     terms, with ``up128`` and the constants as the source defines them."""
@@ -278,6 +337,32 @@ def _c_layout(cu, function, **values):
     terms = [re.sub(r"\((?:size_t|uint32_t)\)", "", t) for t in re.findall(r"at \+= ([^;]+);", body)]
     terms = [re.sub(r"\(([^()?]+) \? ([^():]+) : ([^()]+)\)", r"(\2 if \1 else \3)", t) for t in terms]
     return sum(eval(t, {}, env) for t in terms)
+
+
+def test_glm_tiled_shared_memory_does_not_grow():
+    """B1 / B2's tiled route, read from the C source: its block layout
+    (``layout_of`` of namespace ``tiled``) takes no D and no K, and is the
+    wrapper's ``glm_tiled_smem_bytes``; its constants are the plan's; the
+    float32 kernels are gone; every shape's plan holds that layout."""
+    with open(os.path.join(ROOT, "math_tpu_torch/csrc/glm_fused.cu"), encoding="utf-8") as f:
+        source = f.read()
+    cu = source.split("namespace tiled {", 1)[1]
+    assert re.search(r"inline Layout layout_of\(([^)]*)\)", cu).group(1) == "int stages"
+    consts = {"CH": gf.GLM_TILED_CHAINS, "RT": gf.GLM_TILED_ROWS, "DS": gf.GLM_TILED_DS, "RCH": gf.GLM_TILED_CHUNK,
+              "FG": gf.GLM_TILED_FEATURES, "STAGES": gf.GLM_TILED_STAGES}
+    for name, value in consts.items():
+        assert re.search(rf"^constexpr int {name} = {value};", cu, re.M), name
+    assert _c_layout(cu, "layout_of", stages=gf.GLM_TILED_STAGES) == gf.glm_tiled_smem_bytes() <= gf.MAX_SMEM_BYTES
+    assert _c_layout(cu, "layout_of", stages=2) - _c_layout(cu, "layout_of", stages=1) == gf.GLM_TILED_STAGE_BYTES
+    line = re.search(r"#define GLM_TILED_KINDS\(X\)(.*)", cu).group(1)
+    assert re.findall(r"X\((\d)\)", line) == [str(i) for i in range(gf.ORDERED_KIND + 1)]
+    for name in ("glm_fused_kernel", "glm_ordered_kernel", "FUSED_SMEM", "ORDERED_SMEM", "stage_x_slice", "eta_over_slices",
+                 "gradient_over_slices", "LibraryMath"):
+        assert name not in source, name
+    for n, d, c, k in ((1, 1, 1, 300), (4099, 64, 20, None), (100_000, 1024, 256, 12), (777, 57, 300, 6), (64, 5000, 3, 9)):
+        plan = gf.glm_tile_plan(n, d, c, SMS, kcat=k)
+        _glm_tiled_plan_holds(plan, n, d, c)
+        assert plan["smem"] == _c_layout(cu, "layout_of", stages=gf.GLM_TILED_STAGES)
 
 
 def test_tiled_layout_is_the_plans():

@@ -251,7 +251,7 @@ def test_kernel_loader_raises_without_nvcc(tmp_path):
 
 
 GLM_ENTRY_POINTS = (
-    "glm_fused_launch", "glm_ordered_launch",
+    "glm_tiled_launch", "glm_tiled_smem_bytes",
     "glm_categorical_launch", "glm_categorical_smem_bytes", "glm_categorical_chains_per_tile",
     "glm_categorical_tiled_launch", "glm_categorical_tiled_smem_bytes",
 )

@@ -7,8 +7,8 @@ Run from the repository root on a machine with one GPU and nvcc:
 
 ``--root`` is the checkout whose ``math_tpu_torch`` is timed (default: the
 one holding this script), so that two trees can be compared in one call
-(parent, change, change, parent): in a tree with the tiled tensor-core pair
-the shapes go there, in an older one to the float32 kernel it replaces.  At
+(parent, change, change, parent); each tree must have the tiled tensor-core
+pair and its ``LAUNCHES_TILED`` count.  At
 N = 100,000, C = 256 and (D, K) = (50, 65), (50, 200), (400, 5), (212, 41)
 (``chip_smoke.py``'s ``wide`` shapes) it times ``categorical_logit_glm_parts``
 and, on the same inputs, the two products alone as float32 cuBLAS calls
@@ -101,7 +101,7 @@ def main():
     for i, (d, k) in enumerate(SHAPES):
         y, x, alpha, beta = inputs(N, d, C, k, 700 + d + k)
         plan = route_of(N, d, C, k, sms)
-        counts = {"tensor_cores": dict(glm_fused.LAUNCHES), "fma": dict(glm_fused.LAUNCHES_FMA)}
+        counts = {"tensor_cores": dict(glm_fused.LAUNCHES), "tiled": dict(glm_fused.LAUNCHES_TILED)}
         ms, reps = median_ms(lambda: glm_fused.categorical_logit_glm_parts(y, x, alpha, beta))
         bmat = beta.permute(1, 0, 2).reshape(d, C * k)
         x1 = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
@@ -136,8 +136,7 @@ def main():
             "bound_tf32x3_ms": max(3.0 * flops / PEAK_TF32_FLOPS, core / PEAK_FP32_FLOPS, nbytes / 3.35e12) * 1e3,
             "bound_fp32_ms": max((flops + core) / PEAK_FP32_FLOPS, nbytes / 3.35e12) * 1e3,
             "calls_counted": {"tensor_cores": glm_fused.LAUNCHES[glm_fused.CATEGORICAL] - counts["tensor_cores"][glm_fused.CATEGORICAL],
-                              "fma": glm_fused.LAUNCHES_FMA[glm_fused.CATEGORICAL] - counts["fma"][glm_fused.CATEGORICAL],
-                              "tiled": getattr(glm_fused, "LAUNCHES_TILED", {}).get(glm_fused.CATEGORICAL, 0)},
+                              "tiled": glm_fused.LAUNCHES_TILED[glm_fused.CATEGORICAL] - counts["tiled"][glm_fused.CATEGORICAL]},
         })
         del y, x, alpha, beta
         torch.cuda.empty_cache()

@@ -21,9 +21,10 @@ It builds, next to the port's kernels (``get_config().kernel_build_dir``):
   product 1, the core, the tile sums, product 2), run for kernel 1
   (bernoulli-logit, and normal-id, whose core is the cheapest) at the main
   path's shape (N=100,000, D=50, C=256) and for the ordered kernel (K=5) at
-  the ordinal path's; the time of each beside the float32-FMA kernel's on
-  the same inputs, there and at 32 chains (a block of 128 chains then holds
-  one pair of warpgroups with no chains);
+  the ordinal path's; the time of each beside the tiled route's (the kernels
+  that take the shapes glm_tc_kernel cannot hold) on the same inputs, there
+  and at 32 chains (a block of 128 chains then holds one pair of warpgroups
+  with no chains);
 - a copy of ``csrc/chol_inv_block.cu`` with a clock read by thread 0 of block
   0 between its stages, run on a Schur block of the GP path (Cb=32, B=128);
   printed as clocks per launch;
@@ -37,7 +38,18 @@ It builds, next to the port's kernels (``get_config().kernel_build_dir``):
   the tile's lse wait, theta', the window wait, product 2, the barrier at
   the tile's end), run once at each of the four timed wide shapes (N =
   100,000, C = 256); printed as clocks per row tile of that block, with its
-  windows and slices.  ``--tiled`` runs this alone.
+  windows and slices.  ``--tiled`` runs this alone;
+- ``--wide`` (alone): a copy of ``csrc/glm_fused.cu`` with a clock read by
+  thread 0 of block (0, 0, 0) (warp 0 of the first consumer warpgroup)
+  between the phases of B1 / B2's tiled route (launch 1: per slice the wait
+  for its stage, the products, the release and the adds; per row tile the
+  core, its sums and theta' out; launch 2: per chunk the wait, the A
+  fragments, the products, the release and the adds), run at the six timed
+  wide shapes (N = 100,000, C = 256: bernoulli-logit and poisson-log at D =
+  282 and 1,024, the ordered GLM at (236, 5) and (1024, 12)); printed as
+  clocks per row tile (launch 1) and per chunk (launch 2) of that block,
+  beside the device time of each of the five launches of one call
+  (``torch.profiler``).
 
 Each result is one JSON line; the last line is the card's name and power
 limit.  Measurement only: nothing of the port calls these copies.
@@ -147,9 +159,9 @@ def read_clocks(lib, names, per):
 def glm_tc_clocks(names, reps=5):
     """Kernel 1 (bernoulli-logit, and normal-id, the family with the cheapest
     core) and the ordered kernel (K=5) on the tensor cores at the main shape:
-    the stamped copy's time and the float32-FMA kernel's on the same inputs,
-    the clocks per tile of block (0, 0); then, at 32 chains, the port's
-    tensor-core kernel (through its wrapper) against the float32-FMA kernel."""
+    the stamped copy's time and the tiled route's on the same inputs, the
+    clocks per tile of block (0, 0); then, at 32 chains, the port's kernel
+    (through its wrapper) against the tiled route."""
     n, d, c, k = cs.N_MAIN, cs.K_MAIN, cs.C_MAIN, cs.K_CAT
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     x = glm_logistic.synthetic_data(n, d)[0]
@@ -167,19 +179,12 @@ def glm_tc_clocks(names, reps=5):
     }
     stream = torch.cuda.current_stream().cuda_stream
 
-    def fma_ms(kind, kcat, yy, xx, aa, bb, ee, rows, cc):
-        """The float32-FMA kernel (the design the tensor-core one replaced on
-        these shapes; the wider ones still take it) on the first ``cc`` chains."""
-        rb = glm_fused.row_blocks_for(n, cc, sms)
-        part, out = torch.empty((rb, rows, cc), device="cuda"), torch.empty((rows, cc), device="cuda")
-        if kcat == 0:
-            fma = lambda: main_lib.glm_fused_launch(kind, yy.data_ptr(), xx.data_ptr(), aa.data_ptr(), bb.data_ptr(),  # noqa: E731
-                                                    None if ee is None else ee.data_ptr(), part.data_ptr(),
-                                                    out.data_ptr(), n, d, cc, rb, stream)
-        else:
-            fma = lambda: main_lib.glm_ordered_launch(yy.data_ptr(), xx.data_ptr(), bb.data_ptr(), ee.data_ptr(),  # noqa: E731
-                                                      part.data_ptr(), out.data_ptr(), n, d, cc, kcat, rb, stream)
-        return cs.time_ms(fma, warmup=3, reps=20)
+    def tiled_ms(kind, kcat, yy, xx, aa, bb, ee, rows, cc):
+        """The tiled route (the kernels that take the shapes glm_tc_kernel
+        cannot hold) on the first ``cc`` chains of the same inputs."""
+        plan = glm_fused.glm_tiled_plan(n, d, cc, sms)
+        return cs.time_ms(lambda: glm_fused._launch_tiled("phase_clocks", kind, kcat, plan, yy, xx, aa, bb, ee, rows),
+                          warmup=3, reps=20)
 
     for label, (kind, kcat, yy, xx, aa, bb, ee, rows, kplan) in kernels.items():
         plan = glm_fused.glm_tile_plan(n, d, c, sms, kcat=kplan)
@@ -202,12 +207,12 @@ def glm_tc_clocks(names, reps=5):
         clocks = read_clocks(lib, names, tiles)
         print(json.dumps({"phase": "glm_tc_clocks", "kernel": label, "shape": {"n": n, "d": d, "c": c, "k": kplan},
                           "plan": plan, "ms_with_clocks": ms,
-                          "fma_kernel_ms": fma_ms(kind, kcat, yy, xx, aa, bb, ee, rows, c),
+                          "tiled_route_ms": tiled_ms(kind, kcat, yy, xx, aa, bb, ee, rows, c),
                           "clocks_per_tile_of_block_0": clocks,
                           "total": sum(clocks.values())}), flush=True)
 
-        # 32 chains: the port's route (the tensor cores, half of each block
-        # without chains) against the float32-FMA kernel
+        # 32 chains: the port's kernel (half of each block without chains)
+        # against the tiled route
         small = 32
         aa_s, bb_s = None if aa is None else aa[:small].contiguous(), bb[:, :small].contiguous()
         ee_s = None if ee is None else (ee[:small] if ee.ndim == 1 else ee[:, :small]).contiguous()
@@ -220,7 +225,7 @@ def glm_tc_clocks(names, reps=5):
         tc_ms = cs.time_ms(tc, warmup=3, reps=20)
         print(json.dumps({"phase": "glm_tc_small_chains", "kernel": label,
                           "shape": {"n": n, "d": d, "c": small, "k": kplan}, "plan": small_plan,
-                          "tensor_core_ms": tc_ms, "fma_kernel_ms": fma_ms(kind, kcat, yy, xx, aa_s, bb_s, ee_s, rows, small)}),
+                          "tensor_core_ms": tc_ms, "tiled_route_ms": tiled_ms(kind, kcat, yy, xx, aa_s, bb_s, ee_s, rows, small)}),
               flush=True)
 
 
@@ -252,6 +257,102 @@ TILED = [
     ("        fence_proxy_async();  // theta' and the window are written again for the next tile", "g_product_2"),
     ("        if (tid == 0) request_window(it + 1);", "g_tile_end"),
 ]
+
+
+# B1 / B2's tiled route: launch 1 (value_kernel), then launch 2 (grad_kernel)
+WIDE = [
+    ("    RingPlace at(STAGES);\n    for (int it = 0; it < my_tiles; ++it) {", None),
+    ("            const float* stage = reinterpret_cast<const float*>(ring + at.st * STAGE_BYTES);\n            const uint64_t da_hi",
+     "v_wait"),
+    ("            release(empty, at);\n#pragma unroll\n            for (int e = 0; e < 64; ++e) eta[e] += acc[e];", "v_products"),
+    ("        }\n\n        // --- the core on the accumulator: eta[e] is", "v_release_and_adds"),
+    ("    }\n}\n\n// Launch 2.", "v_core_sums_and_theta_out"),
+    ("    RingPlace at(STAGES);\n    for (int i = 0; i < my_chunks; ++i) {", None),
+    ("        const float* xs = stage + 2 * TILE_FLOATS + fq * (TILE_FLOATS / 2);", "g_wait"),
+    ("        const uint64_t db_hi = kmajor_desc(stage, DS);", "g_a_fragments"),
+    ("        release(empty, at);\n#pragma unroll\n        for (int e = 0; e < 64; ++e) gs[e] += acc[e];", "g_products"),
+    ("    }\n\n    // --- this block's partial: gs[e]", "g_release_and_adds"),
+]
+WIDE_SHAPES = [("bernoulli_logit", 282, None), ("poisson_log", 282, None), ("bernoulli_logit", 1024, None),
+               ("poisson_log", 1024, None), ("ordered", 236, 5), ("ordered", 1024, 12)]  # (kind, d, k)
+
+
+def wide_clocks(reps=2):
+    """B1 / B2's tiled route, stamped, at the six timed wide shapes: clocks of
+    block (0, 0, 0) of launches 1 and 2, per row tile and per chunk of that
+    block; the stamped copy's time; each launch's device time of one call of
+    the port's route (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    src, names = instrument("glm_fused.cu", WIDE, slots=16)
+    path = os.path.join(OUT, "wide_clocks.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    finish(nvcc(path, os.path.join(OUT, "libwide_clocks.so")), "wide_clocks")
+    lib = ctypes.CDLL(os.path.join(OUT, "libwide_clocks.so"))
+    lib.glm_tiled_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, c = cs.N_MAIN, cs.C_MAIN
+    for kind, d, k in WIDE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(700 + d + (k or 0))
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        beta = min(0.1, d ** -0.5) * torch.randn((d, c), generator=gen, device="cuda")
+        if kind == "ordered":
+            y = torch.randint(1, k + 1, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            alpha, extra = None, torch.sort(torch.randn((k - 1, c), generator=gen, device="cuda"), dim=0).values
+            code, kcat, rows = glm_fused.ORDERED_KIND, k, d + k
+            port = lambda: glm_fused.ordered_logistic_glm_parts(y, x, beta, extra)  # noqa: E731
+        else:
+            y = (torch.randint(0, 2, (n,), generator=gen, device="cuda") if kind == "bernoulli_logit"
+                 else torch.poisson(torch.full((n,), 2.0, device="cuda"), generator=gen)).float()
+            alpha, extra = 0.1 * torch.randn((c,), generator=gen, device="cuda"), None
+            code, kcat, rows = glm_fused.FAMILIES.index(kind), 0, d + 3
+            port = lambda: glm_fused.glm_fused_parts(kind, y, x, alpha, beta)  # noqa: E731
+        plan = glm_fused.glm_tile_plan(n, d, c, sms, kcat=k)
+        packed_n, theta_n, sums_n, part_n = glm_fused.glm_tiled_scratch(n, d, c, k)
+        packed, theta = torch.empty((packed_n,), device="cuda"), torch.empty((theta_n,), device="cuda")
+        sums = torch.empty((plan["row_blocks_value"] * sums_n,), dtype=torch.float64, device="cuda")
+        part, out = torch.empty((plan["row_blocks"] * part_n,), device="cuda"), torch.empty((rows, c), device="cuda")
+
+        def launch():
+            err = lib.glm_tiled_launch(
+                code, kcat, y.data_ptr(), x.data_ptr(), None if alpha is None else alpha.data_ptr(), beta.data_ptr(),
+                None if extra is None else extra.data_ptr(), packed.data_ptr(), theta.data_ptr(), sums.data_ptr(),
+                part.data_ptr(), out.data_ptr(), n, d, c, plan["row_blocks_value"], plan["row_blocks"],
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"wide copy: CUDA error {err}")
+
+        ms = cs.time_ms(launch, warmup=1, reps=3)
+        lib.prof_reset()
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_longlong * 16)()
+        lib.prof_read(buf)
+        row_tiles = -(-n // glm_fused.GLM_TILED_ROWS)
+        tiles1 = len(range(0, row_tiles, plan["row_blocks_value"]))
+        chunks2 = len(range(0, 4 * row_tiles, plan["row_blocks"]))
+        per = {name: buf[i] / reps / (tiles1 if name.startswith("v_") else chunks2) for i, name in enumerate(names)}
+        port()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            port()
+            torch.cuda.synchronize()
+        launches = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            if us:
+                launches[ev.key[:80]] = us / 1e3
+        print(json.dumps({"phase": "wide_clocks", "shape": {"kind": kind, "n": n, "d": d, "c": c, "k": k}, "plan": plan,
+                          "ms_with_clocks": ms, "slices": plan["slices"],
+                          "clocks_per_row_tile_of_block_0": {key: v for key, v in per.items() if key.startswith("v_")},
+                          "clocks_per_chunk_of_block_0": {key: v for key, v in per.items() if key.startswith("g_")},
+                          "launch_1_total_per_row_tile": sum(v for key, v in per.items() if key.startswith("v_")),
+                          "launch_2_total_per_chunk": sum(v for key, v in per.items() if key.startswith("g_")),
+                          "device_ms_by_kernel": launches}), flush=True)
+        del x, y, beta, alpha, extra, packed, theta, sums, part, out
+        torch.cuda.empty_cache()
 
 
 def tiled_clocks(reps=2):
@@ -313,8 +414,11 @@ def main():
         print("phase_clocks: no GPU", file=sys.stderr)
         sys.exit(2)
     os.makedirs(OUT, exist_ok=True)
-    if "--tiled" in sys.argv[1:]:
-        tiled_clocks()
+    if "--tiled" in sys.argv[1:] or "--wide" in sys.argv[1:]:
+        if "--tiled" in sys.argv[1:]:
+            tiled_clocks()
+        if "--wide" in sys.argv[1:]:
+            wide_clocks()
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip(), flush=True)
         return
