@@ -153,15 +153,24 @@ BASELINE config 4 as its bench drives it, with the counts set to 0 just
 before it and read just after (``kernels_lv`` right after ``wide``, before
 any sampler; the rest in the worker below):
 
-- ``kernels_lv``: the Lotka-Volterra RK4 kernel pair (``csrc/lv_rk4.cu``,
-  forward solve and exact adjoint, one thread a chain) against its plain
-  version (autograd through ``ode_rk4_fixed``) at the path's shape (C = 512,
-  T = 20, S = 24) in float32 against float64, the double instance against
-  float64 (1e-10), and ragged shapes (C = 5 and 129, T = 3, S = 1 and 7, one
+- ``kernels_lv``: the Lotka-Volterra RK4 kernels (``csrc/lv_rk4.cu``; the
+  forwards a thread a chain, the adjoints a warp a chain): the pair (the
+  forward solve with its states kept, the exact adjoint from them, its 32
+  segments of steps joined by a scan) against its plain version (autograd through
+  ``ode_rk4_fixed``), and the dual pair (dual forward, dual adjoint) against
+  ``torch.func.jvp`` of the plain version's value and vjp, at the path's
+  shape (C = 512, T = 20, S = 24) in float32 against float64, the double
+  instances against float64 (1e-10), the forward equal to the float32 plain
+  version bit for bit and the dual forward's primal to the forward's, the
+  states' layout, and ragged shapes (C = 5 and 129, T = 3, S = 1 and 7, one
   lane whose alpha overflows: the NaN / inf pattern must be the plain
-  version's); times of each kernel and of the plain version, the bound by
-  operations, and beside it the serial chain's own time and cycles a step,
-  read from the kernels' ``clock64`` / ``%globaltimer`` stamps;
+  version's); for each of the four kernels its time (CUDA events over
+  back-to-back calls, and its device time from the profiler), chain 0's
+  serial time and cycles a step from its ``clock64`` / ``%globaltimer``
+  stamps, and four bounds: operations, bytes, the dependent chain's latency
+  (``op_latency_probe``: dependent add / multiply / FMA latency on the card)
+  and the step loop's SASS instructions at one a cycle (``cuobjdump
+  -sass``); the times of the plain version;
 - ``lv_path``: ``make(ts, solver="rk4")`` on ``synthetic_data(20)`` under
   ``run_pooled_chains_chunked``, 512 chains, ``max_depth=7``, accept 0.85,
   chunks of 10 / 15, the bench's 150 + 150 cut to 100 + 100: the forward
@@ -236,9 +245,9 @@ The univariate slice, in the worker below:
 
 The worker: ``lv_path``, ``lv_second_order`` (``functional.hessian`` and
 ``laplace_sample``, 300 draws, at an ``lv_path`` draw in float32: the kernel
-pair for every first-order gradient, the plain version for forward mode and
-the second order, each call counted; against the float64 plain model on
-CPU tensors), ``lv_rk45``, ``ode_family``, ``constrained_prior``,
+pair for every first-order gradient, the dual pair for forward mode and the
+second order, no plain call, each launch counted and the seconds of each
+printed; against the float64 plain model on CPU tensors), ``lv_rk45``, ``ode_family``, ``constrained_prior``,
 ``varying_slopes_path``, ``censored_nb_path`` and ``univariate_sweep`` run,
 in that order and as described, in a second process of this script (``--worker``) that starts
 after the kernel phases (``kernels``, ``kernels_chol``, ``wide``,
@@ -2496,8 +2505,40 @@ LV_REPLACES = "no Pallas kernel: math_tpu/ops/ode.py:408 lax.scan under models/l
 # three stage inputs of 2 x 2, the update 2 x 7; its adjoint given the
 # step's state: stages k1..k3 and s2..s4 again (3 x 8 + 3 x 4), h/6 lambda
 # and its double (4), the four stage adjoints of 24 (J_y^T kbar 13, ybar 2,
-# J_theta^T kbar and its sum 9), the cotangent updates 3 x 4.
-LV_FWD_OPS, LV_ADJ_OPS = 58, 148
+# J_theta^T kbar and its sum 9), the cotangent updates 3 x 4.  In dual
+# numbers a product of two duals is 4 operations, a constant times a dual
+# 2, a sum or a negation 2: the dual forward's right-hand side is 6 products
+# and 2 sums (28), the stage inputs 3 x 2 x 4, the update 2 x 14: 164; the
+# dual adjoint's stages 3 x 28 + 3 x 2 x 4, h/6 lambda and its double 8, a
+# stage adjoint 74 (J_y^T kbar: 8 products, 4 sums, 1 negation; ybar 2
+# sums; J_theta^T kbar: 5 products, 4 sums), the cotangent updates 3 x 2 x
+# 4: 436.
+LV_OPS = {"forward": 58, "adjoint": 148, "dual_forward": 164, "dual_adjoint": 436}
+# The dependent operations on each kernel's serial chain, read from
+# csrc/lv_rk4.cu.  The forwards: a step of the chain's T*S (the forward's
+# rounded products and sums from y to the next y: a right-hand side 2
+# products and a sum deep, a stage input a product and a sum, the update a
+# sum, a product and a sum, 4 x 3 + 3 x 2 + 3; the dual forward's tangent
+# chain, a product of two duals a product and a sum).  The adjoints: a step
+# of a lane's T*S/32, run twice (phase 1 composes the maps, whose offset's
+# chain is the cotangent's; phase 3 runs the cotangent: h/6 lambda, each
+# stage adjoint a product and an FMA, the FMA that updates the next stage's
+# cotangent, the sum into lambda; in dual numbers a stage adjoint is 4
+# deep), then once the scan of 5 levels (two FMAs an offset) and the 5
+# additions of thetabar's sum over the lanes (LV_SCAN_OPS).
+LV_CHAIN_OPS = {
+    "forward": {"mul": 12, "add": 9},
+    "adjoint": {"mul": 10, "fma": 14, "add": 2},
+    "dual_forward": {"mul": 12, "add": 17},
+    "dual_adjoint": {"mul": 10, "fma": 30, "add": 2},
+}
+LV_SCAN_OPS = {"adjoint": {"fma": 10, "add": 5}, "dual_adjoint": {"fma": 20, "add": 10}}
+LV_LANES = 32  # the adjoints' lanes a chain
+# State accesses a step in each kernel's step loop (the forward's store, the
+# adjoint's cp.async copy, LDGSTS; a State of float, double or Dual<float>
+# is one access, of Dual<double>, 32 bytes, two): the marker by which the
+# SASS of the step loop is found and its steps counted.
+LV_STEP_ACCESS = {"forward": "STG", "adjoint": "LDGSTS", "dual_forward": "STG", "dual_adjoint": "LDGSTS"}
 # Recovery limits of lv_path on |log posterior mean - log generating value|,
 # from a CPU rehearsal of drive_lv at 16 chains (float32, 100 + 100): theta
 # 0.176-0.238, z0 0.084-0.135.  The distances are the data's: the JAX
@@ -2545,11 +2586,47 @@ def lv_plain_parts(z0, theta, gbar, ts, steps, dtype, device="cuda"):
 
 
 def lv_kernel_parts(z0, theta, gbar, ts, steps, dtype):
-    """``(ys, z0bar, thetabar)`` of the kernel pair in ``dtype``."""
+    """``(ys, z0bar, thetabar, states)`` of the kernel pair in ``dtype``."""
     z, th, g = (torch.tensor(a, dtype=dtype, device="cuda") for a in (z0, theta, gbar))
-    ys = lv_rk4.lv_rk4_forward(z, 0.0, ts, th, steps)
-    zb, tb = lv_rk4.lv_rk4_adjoint(z, 0.0, ts, th, steps, ys, g.contiguous())
-    return ys, zb, tb
+    ys, states = lv_rk4.lv_rk4_forward(z, 0.0, ts, th, steps)
+    zb, tb = lv_rk4.lv_rk4_adjoint(0.0, ts, th, steps, states, g.contiguous())
+    return ys, zb, tb, states
+
+
+def lv_tangents(c, nt, seed):
+    """Tangents ``(tz0 (c, 2), ttheta (c, 4), tgbar (c, nt, 2))`` as numpy,
+    scaled like their primals (z0 ~ 10, theta's entries as the generating
+    values, gbar ~ 1)."""
+    _, _, theta_true, z0_true = lotka_volterra.synthetic_data(LV_TIMES)
+    rng = np.random.default_rng(seed)
+    return 0.1 * z0_true * rng.normal(size=(c, 2)), 0.1 * theta_true * rng.normal(size=(c, 4)), rng.normal(size=(c, nt, 2))
+
+
+def lv_plain_dual_parts(z0, theta, gbar, tangents, ts, steps, dtype, device="cuda"):
+    """``(ys, ys', z0bar, thetabar, z0bar', thetabar')`` of the plain
+    version: ``torch.func.jvp`` of ``(z0, theta, gbar) -> (ys, vjp of ys at
+    gbar)`` through ``ode_rk4_fixed``, in ``dtype`` on ``device``."""
+    z, th, g, tz, tth, tg = (torch.tensor(a, dtype=dtype, device=device) for a in (z0, theta, gbar, *tangents))
+
+    def f(a, b, cot):
+        ys, pullback = torch.func.vjp(lambda x, y: lv_rk4.lv_rk4_plain(x, 0.0, ts, y, steps), a, b)
+        return (ys,) + pullback(cot)
+
+    (ys, zb, tb), (tys, tzb, ttb) = torch.func.jvp(f, (z, th, g), (tz, tth, tg))
+    return ys, tys, zb, tb, tzb, ttb
+
+
+def lv_dual_parts(z0, theta, gbar, tangents, ts, steps, dtype):
+    """``(ys, ys', z0bar, thetabar, z0bar', thetabar')`` of the dual kernels
+    in ``dtype``: the dual forward (its states kept), then the dual adjoint."""
+    z, th, g, tz, tth, tg = (torch.tensor(a, dtype=dtype, device="cuda") for a in (z0, theta, gbar, *tangents))
+    ys, tys, states = lv_rk4.lv_rk4_dual_forward(z, 0.0, ts, th, steps, tz, tth, keep_states=True)
+    zb, tb, tzb, ttb = lv_rk4.lv_rk4_dual_adjoint(0.0, ts, th, steps, tth, states, g, tg)
+    return ys, tys, zb, tb, tzb, ttb
+
+
+LV_PARTS = ("ys", "z0bar", "thetabar")
+LV_DUAL_PARTS = ("ys", "ys_dot", "z0bar", "thetabar", "z0bar_dot", "thetabar_dot")
 
 
 def normalized_err(got, want):
@@ -2557,42 +2634,56 @@ def normalized_err(got, want):
     return float((got.double() - want.double()).abs().max() / want.double().abs().max())
 
 
-def normalized_errs(got, want):
-    """``normalized_err`` of each of ``ys, z0bar, thetabar``."""
-    return {name: normalized_err(g, w) for name, g, w in zip(("ys", "z0bar", "thetabar"), got, want)}
+def normalized_errs(got, want, names=LV_PARTS):
+    """``normalized_err`` of each part."""
+    return {name: normalized_err(g, w) for name, g, w in zip(names, got, want)}
 
 
 def lv_ragged_checks():
-    """Ragged shapes, each with one lane whose alpha overflows: the kernel in
-    float32 and float64 against the plain version of the same dtype.  The
-    pattern of NaN and of inf in ``ys`` and of non-finite gradients must be
-    the plain version's; the finite lanes agree within the main shape's
-    tolerances (float64 ones for the double instance)."""
+    """Ragged shapes, each with one lane whose alpha overflows: the pair and
+    the dual pair in float32 and float64 against the plain version of the
+    same dtype (its ``torch.func.jvp`` for the dual pair).  The pattern of NaN
+    and of inf in ``ys`` (and ``ys'``) must be the plain version's element by
+    element, the non-finite pattern of the gradients the plain version's
+    element by element (the pair) or lane by lane (the dual pair, whose
+    formulas for the tangent of the gradient differ from autograd's); the
+    finite lanes agree within the main shape's tolerances (float64 ones for
+    the double instances)."""
     ts_all = lotka_volterra.synthetic_data(LV_TIMES)[0]
     out = {}
     for c in (5, 129):
         for steps in (1, 7):
             z0, theta, gbar = lv_kernel_inputs(c, 3, seed=300 + c + steps, overflow=True)
+            tangents = lv_tangents(c, 3, seed=600 + c + steps)
             for dtype, tol in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
-                got = lv_kernel_parts(z0, theta, gbar, ts_all[:3], steps, dtype)
-                want = lv_plain_parts(z0, theta, gbar, ts_all[:3], steps, dtype)
-                torch.cuda.synchronize()
                 label = f"c{c}_s{steps}_{str(dtype)[6:]}"
-                require(torch.equal(torch.isnan(got[0]), torch.isnan(want[0])) and
-                        torch.equal(torch.isinf(got[0]), torch.isinf(want[0])), f"lv_rk4 {label}: NaN/inf pattern of ys")
+                got = lv_kernel_parts(z0, theta, gbar, ts_all[:3], steps, dtype)[:3]
+                want = lv_plain_parts(z0, theta, gbar, ts_all[:3], steps, dtype)
+                dual = lv_dual_parts(z0, theta, gbar, tangents, ts_all[:3], steps, dtype)
+                dual_want = lv_plain_dual_parts(z0, theta, gbar, tangents, ts_all[:3], steps, dtype)
+                torch.cuda.synchronize()
+                for name, g, w in (("ys", got[0], want[0]), ("dual ys", dual[0], want[0]), ("ys'", dual[1], dual_want[1])):
+                    require(torch.equal(torch.isnan(g), torch.isnan(w)) and torch.equal(torch.isinf(g), torch.isinf(w)),
+                            f"lv_rk4 {label}: NaN/inf pattern of {name}")
                 for g, w, name in zip(got[1:], want[1:], ("z0bar", "thetabar")):
                     require(torch.equal(torch.isfinite(g), torch.isfinite(w)), f"lv_rk4 {label}: non-finite pattern of {name}")
+                lanes = lambda parts: torch.stack([torch.isfinite(t).flatten(1).all(1) for t in parts[2:]])  # noqa: E731
+                require(torch.equal(lanes(dual), lanes(dual_want)), f"lv_rk4 dual {label}: non-finite lanes of the gradient")
                 fin = torch.isfinite(want[0]).all(dim=(1, 2)) & torch.isfinite(want[2]).all(dim=1)
                 require(int(fin.sum()) == c - 1, f"lv_rk4 {label}: {int(fin.sum())} finite lanes of {c}")
                 errs = normalized_errs([t[fin] for t in got], [t[fin] for t in want])
+                dual_errs = normalized_errs([t[fin] for t in dual], [t[fin] for t in dual_want], LV_DUAL_PARTS)
                 require(max(errs.values()) <= tol, f"lv_rk4 {label}: {errs} > {tol}")
-                out[label] = {"normalized_err": errs, "nonfinite_ys": int((~torch.isfinite(got[0])).sum()),
-                              "nan_ys": int(torch.isnan(got[0]).sum())}
+                dual_tol = tol if dtype == torch.float64 else LV_DUAL_TOL32_RAGGED
+                require(max(dual_errs.values()) <= dual_tol, f"lv_rk4 dual {label}: {dual_errs} > {dual_tol}")
+                out[label] = {"normalized_err": errs, "dual_normalized_err": dual_errs,
+                              "nonfinite_ys": int((~torch.isfinite(got[0])).sum()), "nan_ys": int(torch.isnan(got[0]).sum()),
+                              "nonfinite_ys_dot": int((~torch.isfinite(dual[1])).sum())}
     return out
 
 
 def lv_chain_stamps(launches, n_steps, reps=5):
-    """Chain 0's serial work inside each kernel of the pair, from its stamps
+    """Chain 0's serial work inside each kernel, from its stamps
     (``clock64()`` and ``%globaltimer`` where its steps start and end): the
     median over ``reps`` launches of the time (ms) and of the cycles a step.
     ``launches`` maps a name to a function of the stamps tensor."""
@@ -2610,53 +2701,257 @@ def lv_chain_stamps(launches, n_steps, reps=5):
     return out
 
 
+def sass_functions(text):
+    """``{mangled name: [(address, instruction)]}`` of ``cuobjdump -sass``
+    output, with each branch target resolved to an address."""
+    funcs, cur, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            labels, pending = {}, []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m and cur is not None:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            cur.append((addr, m.group(2), labels))
+    out = {}
+    for name, ins in funcs.items():
+        resolved = []
+        for addr, text_, labels_ in ins:
+            tgt = None
+            if re.search(r"\bBRA\b", text_):
+                m = re.search(r"\(\s*(\.L_x_\d+)\s*\)", text_)
+                if m:
+                    tgt = labels_.get(m.group(1))
+                else:
+                    m = re.search(r"\b0x([0-9a-f]+)\b", text_)
+                    tgt = int(m.group(1), 16) if m else None
+            resolved.append((addr, text_, tgt))
+        out[name] = resolved
+    return out
+
+
+def sass_step_loops(ins, access):
+    """``[(instructions, accesses)]`` of every innermost loop of one kernel's
+    SASS that holds an ``access`` instruction (the adjoints' two phases)."""
+    loops = []
+    for addr, text_, tgt in ins:
+        if tgt is None or tgt > addr:
+            continue
+        body = [t for a, t, _ in ins if tgt <= a <= addr]
+        n_access = sum(1 for t in body if re.match(r"(@!?U?P\w+\s+)?" + access + r"\b", t))
+        if n_access:
+            loops.append((tgt, addr, len(body), n_access))
+    inner = [x for x in loops if not any(y is not x and x[0] <= y[0] and y[1] <= x[1] for y in loops)]
+    return [(n, k) for _, _, n, k in inner]
+
+
+def sass_step_loop(ins, access):
+    """The step loop of one kernel's SASS: of its loops (a backward branch
+    and its target) that hold an ``access`` instruction (the state store or
+    load each step makes), the innermost, that is the shortest.
+    ``(instructions in the loop, state accesses in it)``, or None."""
+    best = None
+    for addr, text_, tgt in ins:
+        if tgt is None or tgt > addr:
+            continue
+        body = [t for a, t, _ in ins if tgt <= a <= addr]
+        n_access = sum(1 for t in body if re.match(r"(@!?U?P\w+\s+)?" + access + r"\b", t))
+        if n_access and (best is None or len(body) < best[0]):
+            best = (len(body), n_access)
+    return best
+
+
+def lv_sass_steps(lib_path):
+    """Instructions a step of each instance's step loop, from ``cuobjdump
+    -sass`` of the built library: ``{instance: {dtype: {"instructions",
+    "accesses", "per_step"}}}`` (a State of Dual<double> takes two accesses a
+    step, every other one)."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], check=True, capture_output=True, text=True).stdout
+    funcs = sass_functions(text)
+    out = {}
+    for name, ins in funcs.items():
+        m = re.search(r"lv_rk4_(forward|adjoint)_kernelI(N\w*?Dual)?I?([fd])E", name)
+        if not m:
+            continue
+        dual, dtype = m.group(2) is not None, {"f": "float32", "d": "float64"}[m.group(3)]
+        kind = ("dual_" if dual else "") + m.group(1)
+        per_access = 2 if (dual and dtype == "float64") else 1
+        if kind.endswith("adjoint"):  # its two phases' loops, a step of each
+            loops = sass_step_loops(ins, LV_STEP_ACCESS[kind])
+            require(len(loops) == 2, f"lv_rk4: {len(loops)} step loops in the SASS of {name}")
+            out.setdefault(kind, {})[dtype] = {"loops": loops, "per_step": sum(n / (k / per_access) for n, k in loops)}
+            continue
+        loop = sass_step_loop(ins, LV_STEP_ACCESS[kind])
+        require(loop is not None, f"lv_rk4: no step loop found in the SASS of {name}")
+        steps = loop[1] / per_access
+        out.setdefault(kind, {})[dtype] = {"instructions": loop[0], "accesses": loop[1], "steps_in_loop": steps,
+                                           "per_step": loop[0] / steps}
+    return out, len(text)
+def lv_profiled_ms(calls, reps=20):
+    """Device time (ms) a call of each of ``calls`` (a name to ``(function,
+    predicate on the profiler's kernel name)``) from ``torch.profiler``: the
+    kernel's own time, free of the host time between launches that CUDA
+    events around back-to-back calls include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, (fn, match) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and match(e.key)]
+        us, n = sum(dev_us(e) for e in rows), sum(e.count for e in rows)
+        require(us > 0 and n == reps, f"lv_rk4 {name}: the profiler saw {n} launches, {us} us")
+        out[name] = us / 1e3 / reps
+    return out
+
+
+def lv_instance_bytes(kind, c, nt, n_steps, width):
+    """Bytes each instance must move: its inputs read once, its outputs
+    written once (the states an output of the forwards and an input of the
+    adjoints; a dual array twice its primal)."""
+    dual = 2 if kind.startswith("dual") else 1
+    states = dual * 2 * c * n_steps
+    if kind.endswith("forward"):
+        n = dual * (2 * c + 4 * c + 2 * c * nt) + 3 * nt + states
+    else:
+        n = dual * (4 * c + 2 * c * nt + 2 * c + 4 * c) + 3 * nt + states
+    return float(width * n)
+
+
+# float32 tolerances of the dual pair, on the largest error over the largest
+# float64 value of each output: 10x the float32 plain version's own error
+# (``torch.func.jvp`` of its vjp against float64 on the CPU, rounded up) at
+# the main shape (ys 1.0e-6, ys' 4.2e-6, z0bar 2.3e-6, thetabar 2.1e-6,
+# z0bar' 2.1e-5, thetabar' 4.7e-6) and at the ragged shapes' finite lanes
+# (worst 1.2e-6).
+LV_DUAL_TOL32 = {"ys": 2e-5, "ys_dot": 5e-5, "z0bar": 5e-5, "thetabar": 5e-5, "z0bar_dot": 2.5e-4, "thetabar_dot": 5e-5}
+LV_DUAL_TOL32_RAGGED = 2e-5
+
+
 def phase_kernels_lv():
-    """The LV kernel pair against its plain version on the card: the main
-    shape (C = 512, T = 20, S = 24) in float32 against float64, the double
-    instance against float64, the ragged shapes; times of the kernels, of the
-    plain version (eager autograd, float32) and the bounds."""
+    """The LV kernels against their plain version on the card: the pair
+    (forward with its states kept, adjoint) and the dual pair (dual forward,
+    dual adjoint) at the main shape (C = 512, T = 20, S = 24) in float32
+    against float64, the double instances against float64, the ragged
+    shapes; each instance's time (CUDA events over back-to-back calls, and
+    its device time from the profiler), chain 0's serial time and cycles a
+    step, and four bounds: operations, bytes, the dependent chain's latency
+    (``op_latency_probe``) and the step loop's instructions at one a cycle
+    (``cuobjdump -sass``).  Returns the kernel entries of the pair and of the
+    dual pair."""
     ts = lotka_volterra.synthetic_data(LV_TIMES)[0]
     c, nt, steps = C_LV, LV_TIMES, LV_STEPS
+    n_steps = nt * steps
     z0, theta, gbar = lv_kernel_inputs(c, nt, seed=400)
+    tangents = lv_tangents(c, nt, seed=401)
     want = lv_plain_parts(z0, theta, gbar, ts, steps, torch.float64)
     got32 = lv_kernel_parts(z0, theta, gbar, ts, steps, torch.float32)
     got64 = lv_kernel_parts(z0, theta, gbar, ts, steps, torch.float64)
     plain32 = lv_plain_parts(z0, theta, gbar, ts, steps, torch.float32)
+    dual_want = lv_plain_dual_parts(z0, theta, gbar, tangents, ts, steps, torch.float64)
+    dual32 = lv_dual_parts(z0, theta, gbar, tangents, ts, steps, torch.float32)
+    dual64 = lv_dual_parts(z0, theta, gbar, tangents, ts, steps, torch.float64)
+    plain_dual32 = lv_plain_dual_parts(z0, theta, gbar, tangents, ts, steps, torch.float32)
     torch.cuda.synchronize()
     # float32: 10x the float32 plain version's own error at this shape on the
     # CPU (1.5e-6 for ys, 3e-6 for the gradients, normalized by the largest value)
     tol32 = {"ys": 2e-5, "z0bar": 5e-5, "thetabar": 5e-5}
-    errs32, errs64, plain_errs = normalized_errs(got32, want), normalized_errs(got64, want), normalized_errs(plain32, want)
+    errs32, errs64, plain_errs = (normalized_errs(g[:3], want) for g in (got32, got64, plain32))
     for name, tol in tol32.items():
         require(errs32[name] <= tol, f"lv_rk4 float32 {name}: normalized error {errs32[name]} > {tol}")
         require(errs64[name] <= 1e-10, f"lv_rk4 float64 {name}: normalized error {errs64[name]} > 1e-10")
+    dual_errs32, dual_errs64, plain_dual_errs = (normalized_errs(g, dual_want, LV_DUAL_PARTS) for g in (dual32, dual64, plain_dual32))
+    for name, tol in LV_DUAL_TOL32.items():
+        require(dual_errs32[name] <= tol, f"lv_rk4 dual float32 {name}: normalized error {dual_errs32[name]} > {tol}")
+        require(dual_errs64[name] <= 1e-10, f"lv_rk4 dual float64 {name}: normalized error {dual_errs64[name]} > 1e-10")
+    forward_equal = bool(torch.equal(got32[0], plain32[0].float()))
+    require(forward_equal, "lv_rk4: the float32 forward is not the plain version's bit for bit")
+    for got, dual in ((got32, dual32), (got64, dual64)):
+        ys, states = got[0], got[3]
+        require(torch.equal(dual[0], ys), "lv_rk4: the dual forward's primal is not the forward's bit for bit")
+        require(torch.equal(states[0], torch.tensor(z0, dtype=ys.dtype, device="cuda"))
+                and torch.equal(states[steps::steps], ys[:, :-1].transpose(0, 1)), "lv_rk4: the states' layout")
     ragged = lv_ragged_checks()
 
-    zt, tht, gt = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in (z0, theta, gbar))
-    ys = lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps)
-    fwd_ms = time_ms(lambda: lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps), warmup=3, reps=50)
-    adj_ms = time_ms(lambda: lv_rk4.lv_rk4_adjoint(zt, 0.0, ts, tht, steps, ys, gt), warmup=3, reps=50)
-    ms = time_ms(lambda: lv_rk4.lv_rk4_adjoint(zt, 0.0, ts, tht, steps, lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps), gt),
+    zt, tht, gt, tzt, ttht, tgt = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in (z0, theta, gbar, *tangents))
+    ys, states = lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps)
+    _, _, dstates = lv_rk4.lv_rk4_dual_forward(zt, 0.0, ts, tht, steps, tzt, ttht, keep_states=True)
+    launch = {
+        "forward": lambda st=None: lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps, stamps=st),
+        "adjoint": lambda st=None: lv_rk4.lv_rk4_adjoint(0.0, ts, tht, steps, states, gt, stamps=st),
+        "dual_forward": lambda st=None: lv_rk4.lv_rk4_dual_forward(zt, 0.0, ts, tht, steps, tzt, ttht, stamps=st, keep_states=True),
+        "dual_adjoint": lambda st=None: lv_rk4.lv_rk4_dual_adjoint(0.0, ts, tht, steps, ttht, dstates, gt, tgt, stamps=st),
+    }
+    events = {k: time_ms(fn, warmup=3, reps=50) for k, fn in launch.items()}
+    ms = time_ms(lambda: lv_rk4.lv_rk4_adjoint(0.0, ts, tht, steps, lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps)[1], gt),
                  warmup=3, reps=50)
+    dual_ms = time_ms(lambda: lv_rk4._LvRk4Hvp.apply(zt, tht, gt, tzt, ttht, tgt, 0.0, ts, steps), warmup=3, reps=50)
+    kernel_of = {"forward": "lv_rk4_forward_kernel<", "adjoint": "lv_rk4_adjoint_kernel<"}
+    device = lv_profiled_ms({k: (fn, lambda key, k=k: kernel_of[k.replace("dual_", "")] in key and ("Dual<float>" in key) ==
+                                 k.startswith("dual") and ("double" not in key)) for k, fn in launch.items()})
+    chain = lv_chain_stamps(launch, n_steps)
     plain_fwd_ms = time_ms(lambda: lv_rk4.lv_rk4_plain(zt, 0.0, ts, tht, steps), warmup=1, reps=3)
     plain_ms = time_ms(lambda: lv_plain_parts(z0, theta, gbar, ts, steps, torch.float32), warmup=1, reps=3)
-    n_steps = nt * steps
-    flops = float(LV_FWD_OPS + LV_ADJ_OPS) * n_steps * c
-    nbytes = 4.0 * (c * 2 + c * 4 + nt + 2 * c * nt * 2 + c * 2 + c * 4)
-    chain = lv_chain_stamps({
-        "forward": lambda st: lv_rk4.lv_rk4_forward(zt, 0.0, ts, tht, steps, stamps=st),
-        "adjoint": lambda st: lv_rk4.lv_rk4_adjoint(zt, 0.0, ts, tht, steps, ys, gt, stamps=st),
-    }, n_steps)
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-    require(bound_ms <= ms, f"lv_rk4: {ms} ms beats its bound {bound_ms} ms: the count is wrong")
+    plain_dual_ms = time_ms(lambda: lv_plain_dual_parts(z0, theta, gbar, tangents, ts, steps, torch.float32), warmup=1, reps=1)
+    latency = {str(dt)[6:]: {op: lv_rk4.op_latency_cycles(op, dt) for op in ("add", "mul", "fma")}
+               for dt in (torch.float32, torch.float64)}
+    sass, _ = lv_sass_steps(_build.library_path(lv_rk4.KERNEL))
+    instances = {}
+    lane_steps = -(-n_steps // LV_LANES)  # an adjoint lane's steps, run in each of its two phases
+    for k in launch:
+        ghz = chain[k]["cycles"] / chain[k]["ns"]
+        serial = lane_steps if k.endswith("adjoint") else n_steps
+        lat = lambda ops: sum(n * latency["float32"][op] for op, n in ops.items())  # noqa: E731
+        lat_cycles = lat(LV_CHAIN_OPS[k])
+        per_step = sass[k]["float32"]["per_step"]
+        ops_ms = LV_OPS[k] * n_steps * c / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = lv_instance_bytes(k, c, nt, n_steps, 4) / PEAK_BYTES_PER_S * 1e3
+        instances[k] = {
+            "events_ms": events[k], "device_ms": device[k], "chain_ms": chain[k]["chain_ms"],
+            "cycles_per_step": chain[k]["cycles_per_step"], "sm_clock_ghz_in_kernel": ghz,
+            "operations_ms": ops_ms, "bytes_ms": bytes_ms,
+            "serial_steps": serial, "latency_cycles_per_step": lat_cycles,
+            "latency_bound_ms": (serial * lat_cycles + lat(LV_SCAN_OPS.get(k, {}))) / ghz / 1e6,
+            "sass_instructions_per_step": per_step, "issue_bound_ms": serial * per_step / ghz / 1e6,
+            "sass": sass[k],
+        }
+    pair, duals = ("forward", "adjoint"), ("dual_forward", "dual_adjoint")
+
+    def bounds(kinds, nbytes):
+        flops = float(sum(LV_OPS[k] for k in kinds)) * n_steps * c
+        ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+                "latency_bound_ms": sum(instances[k]["latency_bound_ms"] for k in kinds),
+                "issue_bound_ms": sum(instances[k]["issue_bound_ms"] for k in kinds)}
+
+    # the function's own bytes: z0, theta, ts and gbar read, ys and the gradient written (tangents double them)
+    pair_bounds = bounds(pair, 4.0 * (c * 2 + c * 4 + nt + 2 * c * nt * 2 + c * 2 + c * 4))
+    dual_bounds = bounds(duals, 4.0 * (2 * (c * 2 + c * 4 + c * nt * 2) + nt + 2 * c * nt * 2 + 2 * (c * 2 + c * 4)))
+    require(pair_bounds["bound_ms"] <= ms and dual_bounds["bound_ms"] <= dual_ms, "lv_rk4: a kernel beats its bound: the count is wrong")
+    common = {"route": "cuda", "source": "math_tpu_torch/csrc/lv_rk4.cu", "library_ms": None,  # no PyTorch call integrates an ODE
+              "shape": {"c": c, "t": nt, "steps_per_interval": steps, "dtype": "float32"}, "op_latency_cycles": latency}
     entry = {
-        "name": "lv_rk4", "route": "cuda", "source": "math_tpu_torch/csrc/lv_rk4.cu", "replaces": LV_REPLACES,
+        "name": "lv_rk4", "replaces": LV_REPLACES, **common,
         "launches": None,  # filled from lv_path's run
-        "max_abs_err": max(float((g.double() - w).abs().max()) for g, w in zip(got32, want)),
-        "ms": ms, "forward_ms": fwd_ms, "adjoint_ms": adj_ms,
-        "plain_ms": plain_ms, "plain_forward_ms": plain_fwd_ms,
-        "bound_ms": bound_ms, "bound_by": "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes",
-        "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "operations_ms": flops / PEAK_FP32_FLOPS * 1e3,
+        "max_abs_err": max(float((g.double() - w).abs().max()) for g, w in zip(got32[:3], want)),
+        "ms": ms, "forward_ms": events["forward"], "adjoint_ms": events["adjoint"],
+        "device_ms": device["forward"] + device["adjoint"],
+        "plain_ms": plain_ms, "plain_forward_ms": plain_fwd_ms, **pair_bounds,
         # measured in this run: chain 0's serial work in each kernel, by its stamps
         "chain_ms": chain["forward"]["chain_ms"] + chain["adjoint"]["chain_ms"],
         "forward_chain_ms": chain["forward"]["chain_ms"], "adjoint_chain_ms": chain["adjoint"]["chain_ms"],
@@ -2664,15 +2959,28 @@ def phase_kernels_lv():
         "cycles_per_step_adjoint": chain["adjoint"]["cycles_per_step"],
         "sm_clock_ghz_in_kernel": (chain["forward"]["cycles"] + chain["adjoint"]["cycles"])
         / (chain["forward"]["ns"] + chain["adjoint"]["ns"]),
-        "library_ms": None,  # no PyTorch call integrates an ODE
-        "shape": {"c": c, "t": nt, "steps_per_interval": steps, "dtype": "float32"},
+        "states_mb": states.numel() * 4 / 1e6,
         "normalized_err": errs32, "tolerance": tol32, "plain_f32_normalized_err": plain_errs,
         "double_normalized_err": errs64, "double_tolerance": 1e-10,
-        "forward_equal_to_plain_f32": bool(torch.equal(got32[0], plain32[0].float())),
+        "forward_equal_to_plain_f32": forward_equal, "instances": {k: instances[k] for k in pair},
         "ragged": ragged,
     }
+    dual_entry = {
+        "name": "lv_rk4_dual", "replaces": LV_REPLACES + " (its jax.jvp, and the jvp of its jax.vjp)", **common,
+        "launches": None,  # filled from lv_second_order's run
+        "max_abs_err": max(float((g.double() - w).abs().max()) for g, w in zip(dual32, dual_want)),
+        "ms": dual_ms, "dual_forward_ms": events["dual_forward"], "dual_adjoint_ms": events["dual_adjoint"],
+        "device_ms": device["dual_forward"] + device["dual_adjoint"],
+        "plain_ms": plain_dual_ms, **dual_bounds,
+        "cycles_per_step_dual_forward": chain["dual_forward"]["cycles_per_step"],
+        "cycles_per_step_dual_adjoint": chain["dual_adjoint"]["cycles_per_step"],
+        "dual_states_mb": dstates.numel() * 4 / 1e6,
+        "normalized_err": dual_errs32, "tolerance": LV_DUAL_TOL32, "plain_f32_normalized_err": plain_dual_errs,
+        "double_normalized_err": dual_errs64, "double_tolerance": 1e-10, "instances": {k: instances[k] for k in duals},
+    }
     emit("kernels_lv", **{k: v for k, v in entry.items() if k != "ragged"}, ragged=ragged)
-    return entry
+    emit("kernels_lv_dual", **dual_entry)
+    return entry, dual_entry
 
 
 def drive_lv(*, chains=C_LV, num_warmup=100, num_samples=100, seed=0, device="cuda", dtype=torch.float32):
@@ -2910,23 +3218,28 @@ def drive_lv_second_order(model, y_obs, z, *, draws=LV_LAPLACE_DRAWS, seed=0, de
 
 
 def phase_lv_second_order(position, y_obs):
-    """``drive_lv_second_order`` at an ``lv_path`` draw: one forward launch
-    for the Hessian's primal and the plain version for its derivatives (its
-    ``jvp`` and its reverse pass: 2 calls); Laplace's L-BFGS on the kernel
-    pair (an adjoint launch a gradient call) and one plain call for its
-    Hessian's double backward, whose outer pass reaches the kernel pair once
-    more through the likelihood's cotangent (one forward launch for the
-    Hessian's lanes, one for the draws' log densities, one more adjoint)."""
+    """``drive_lv_second_order`` at an ``lv_path`` draw, on the kernels alone
+    (no plain call).  The Hessian (``jacfwd`` over ``grad``): one forward
+    launch for its primal, one dual forward for its tangents (the basis
+    folded into the lanes), one adjoint (``_LvRk4Adjoint``'s primal) and one
+    dual forward + dual adjoint for that adjoint's ``jvp``.  Laplace: the
+    L-BFGS on the kernel pair (a forward and an adjoint launch a gradient
+    call); its Hessian's double backward one forward for the Hessian's lanes,
+    one adjoint as ``_LvRk4Adjoint``, one dual forward + dual adjoint for
+    that adjoint's backward and one more adjoint for the likelihood's
+    cotangent; one forward for the draws' log densities.  Returns the report
+    and the dual kernels' launches."""
     model = lotka_volterra.make(lotka_volterra.synthetic_data(LV_TIMES)[0], solver="rk4")
     out = drive_lv_second_order(model, y_obs, position)
     hess, lap = out["hessian"], out["laplace"]
-    require(hess["launches"] == {lv_rk4.FORWARD: 1, lv_rk4.ADJOINT: 0} and hess["plain_calls"]["lv_rk4_plain"] == 2,
+    f, a, df, da = lv_rk4.FORWARD, lv_rk4.ADJOINT, lv_rk4.DUAL_FORWARD, lv_rk4.DUAL_ADJOINT
+    require(hess["launches"] == {f: 1, a: 1, df: 2, da: 1} and hess["plain_calls"]["lv_rk4_plain"] == 0,
             f"lv_second_order: the Hessian's launches {hess}")
     n = lap["lbfgs_grad_calls"]
-    require(n > 0 and lap["launches"] == {lv_rk4.FORWARD: n + 2, lv_rk4.ADJOINT: n + 1} and lap["plain_calls"]["lv_rk4_plain"] == 1,
+    require(n > 0 and lap["launches"] == {f: n + 2, a: n + 2, df: 1, da: 1} and lap["plain_calls"]["lv_rk4_plain"] == 0,
             f"lv_second_order: Laplace's launches {lap}")
-    emit("lv_second_order", **out)
-    return out
+    emit("lv_second_order", hessian_seconds=hess["seconds"], laplace_seconds=lap["seconds"], **out)
+    return out, sum(d["launches"][k] for d in (hess, lap) for k in (df, da))
 
 
 def phase_lv_rk45(position, y_obs):
@@ -4220,7 +4533,7 @@ def worker_main(profiling):
     require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must stay off: the port's products are float32")
     x = glm_logistic.synthetic_data(N_MAIN, K_MAIN)[0]
     lv_res, lv_model, lv_args, lv_launches = phase_lv_path()
-    lv_second = phase_lv_second_order(lv_res.position[0, -1, :].contiguous(), lv_args[0])
+    lv_second, lv_dual_launches = phase_lv_second_order(lv_res.position[0, -1, :].contiguous(), lv_args[0])
     if profiling:
         kernels, total_us, calls = phase_profile(lv_res, lv_model, lv_args, label="profile_lv")
         pair_us = sum(dev_us(e) for e in kernels if lv_rk4.KERNEL in e.key)
@@ -4241,7 +4554,8 @@ def worker_main(profiling):
         profile_inc_beta_share(nb_res, nb_model, nb_args)
     del nb_res, nb_model, nb_args
     phase_univariate_sweep()
-    print(json.dumps({"worker_result": {"lv_launches": lv_launches, "lv_second_order": lv_second, "chol_launches": chol_launches,
+    print(json.dumps({"worker_result": {"lv_launches": lv_launches, "lv_second_order": lv_second,
+                                        "lv_dual_launches": lv_dual_launches, "chol_launches": chol_launches,
                                         "nb_launches": nb_launches, "nb_at_path": nb_at_path}}), flush=True)
 
 
@@ -4255,7 +4569,7 @@ def main():
     ord_entry, cat_entry = phase_kernels_ordered_categorical(x)
     phase_kernels_wide()
     _, _, tiled_entry, glm_tiled = phase_wide(x)
-    lv_entry = phase_kernels_lv()
+    lv_entry, lv_dual_entry = phase_kernels_lv()
     chol_entry["small_shapes"] = phase_kernels_chol_small()
     worker = start_worker([os.path.abspath(__file__), "--worker"] + (["--profile"] if profiling else []))
     sharded = None
@@ -4282,12 +4596,13 @@ def main():
     chol_entry["launches"] += result["chol_launches"]
     lv_entry["launches"] = result["lv_launches"]
     lv_entry["second_order"] = {k: result["lv_second_order"][k] for k in ("hessian", "laplace", "errors")}
-    entries.append(lv_entry)
+    lv_dual_entry["launches"] = result["lv_dual_launches"]
+    entries += [lv_entry, lv_dual_entry]
     nb_entry = next(e for e in entries if e["name"] == f"glm_fused[{NB_FAMILY}]")
     nb_entry["launches"] += result["nb_launches"]
     nb_entry["censored_nb_path"] = {"launches": result["nb_launches"], **result["nb_at_path"]}
     entries += [tiled_entry, glm_tiled]
-    require(len(entries) == 10, f"{len(entries)} kernel entries")
+    require(len(entries) == 11, f"{len(entries)} kernel entries")
     require(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries), "a kernel has no time or no launch")
     emit("script", seconds=time.perf_counter() - START, limit_s=1200)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -37,3 +37,9 @@ def differentiated_again(*saved):
     if any(k in _DIFFERENTIATING for k in stack):
         return True
     return torch.is_grad_enabled() and any(t is not None and plain_tensor(t).requires_grad for t in saved)
+
+
+def forward_levels():
+    """The number of ``jvp`` levels on the ``torch.func`` stack."""
+    return sum(i.key() == TransformType.Jvp for i in retrieve_all_functorch_interpreters())
+

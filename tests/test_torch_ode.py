@@ -210,7 +210,9 @@ def test_lv_adjoint_reference_matches_autograd(c, nt, steps):
 @pytest.mark.parametrize("c,nt,steps", LV_SHAPES)
 def test_lv_adjoint_reference_matches_jax(c, nt, steps):
     """Against ``jax.vjp`` of the reference's ``ode_rk4_fixed`` on its own
-    right-hand side (``math_tpu/models/lotka_volterra.py::dz_dt``)."""
+    right-hand side (``math_tpu/models/lotka_volterra.py::dz_dt``): the sweep
+    that recomputes each interval from ``ys`` and the adjoint kernel's sweep
+    over the stored states."""
     from math_tpu.models.lotka_volterra import dz_dt
 
     ts, z0, th, g = _lv_case(c, nt, steps, seed=10 + c + steps)
@@ -220,9 +222,12 @@ def test_lv_adjoint_reference_matches_jax(c, nt, steps):
     ys = lv_rk4.lv_rk4_plain(torch.tensor(z0), 0.0, ts, torch.tensor(th), steps)
     np.testing.assert_allclose(ys.numpy(), np.asarray(jys), rtol=1e-12)
     got = lv_rk4.lv_rk4_adjoint_reference(torch.tensor(z0), 0.0, ts, torch.tensor(th), steps, ys, torch.tensor(g))
-    for a, b in zip(got, want):
+    _, states = lv_rk4.lv_rk4_states_reference(torch.tensor(z0), 0.0, ts, torch.tensor(th), steps)
+    swept = lv_rk4.lv_rk4_adjoint_states_reference(0.0, ts, torch.tensor(th), steps, states, torch.tensor(g))
+    for a, s, b in zip(got, swept, want):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-12, atol=1e-12 * np.abs(b).max())
+        np.testing.assert_allclose(s.numpy(), b, rtol=1e-12, atol=1e-12 * np.abs(b).max())
 
 
 def test_lv_rk4_takes_the_plain_version_on_the_cpu():
@@ -236,7 +241,9 @@ def test_lv_rk4_takes_the_plain_version_on_the_cpu():
         lv_rk4.lv_rk4(torch.empty(2, 2, device="meta"), 0.0, ts, torch.empty(2, 4, device="meta"), 2)
 
 
-@pytest.mark.parametrize("entry", ["lv_rk4_forward_f32", "lv_rk4_forward_f64", "lv_rk4_adjoint_f32", "lv_rk4_adjoint_f64"])
+@pytest.mark.parametrize("entry", ["lv_rk4_forward_f32", "lv_rk4_forward_f64", "lv_rk4_adjoint_f32", "lv_rk4_adjoint_f64",
+                                   "lv_rk4_dual_forward_f32", "lv_rk4_dual_forward_f64", "lv_rk4_dual_adjoint_f32",
+                                   "lv_rk4_dual_adjoint_f64", "op_latency_probe"])
 def test_lv_entry_point_is_declared_and_bound(entry):
     with open(os.path.join(ROOT, "math_tpu_torch", "csrc", "lv_rk4.cu"), encoding="utf-8") as f:
         cu = f.read()
@@ -244,6 +251,10 @@ def test_lv_entry_point_is_declared_and_bound(entry):
         py = f.read()
     assert f'extern "C" int {entry}(' in cu
     assert entry.rsplit("_", 1)[0] in py and ("f32" in py and "f64" in py)
+    # the ctypes declaration gives as many arguments as the C entry point takes
+    decl = cu.split(f'extern "C" int {entry}(', 1)[1].split(")", 1)[0]
+    argtypes = lv_rk4._PROBE_ARGTYPES if entry == "op_latency_probe" else lv_rk4._ARGTYPES[entry.rsplit("_", 1)[0]]
+    assert decl.count(",") + 1 == len(argtypes), (entry, decl)
 
 
 # ---------------------------------------------------------------------------
